@@ -1,0 +1,167 @@
+"""GRank: all-sources top-K personalized PageRank by iterative basket merging.
+
+Reference: ``ppr::grank`` (include/grank.h:42-150).  Semantics preserved:
+
+* init: ``scores[v] = keepTop_L({v: 1-damping} + {succ: += damping/outdeg})``
+  (include/grank.h:64-83);
+* the main loop sweeps ONE partition per iteration (``iterations`` counts
+  half-sweeps); the other partition's baskets carry over, so a node reads
+  t-1 data from the other partition and t-2 data from its own
+  (include/grank.h:92-140);
+* two ``maxDiff`` slots, one per partition, keep a trivial partition from
+  ending the loop before the other ran (include/grank.h:87-92);
+* a negative tolerance disables the early stop (include/grank.h:37-39);
+* final ``keepTop(K)`` truncation (include/grank.h:143-147).
+
+Baskets are ``[N, L]`` id/score tensors; each half-sweep merges the active
+partition's degree buckets (ops/merge.py).  The loop runs on the host and
+reads the half-sweep's max L1 diff once per half-sweep.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Hashable
+
+import numpy as np
+import torch
+
+from ..graph import Graph
+from ..ops.basket import Baskets, empty_baskets, keep_top_chunked
+from ..ops.merge import (
+    DEFAULT_ELEM_BUDGET,
+    device_plan,
+    merge_sweep,
+    net_max_width,
+    resolve_merge_algo,
+)
+from ..utils.device import resolve_device
+from ..utils.validation import check_basket_params, check_damping, check_iterations
+from .common import baskets_to_dict
+
+
+def _set_dangling(basket: Baskets, rows: np.ndarray, damping: float) -> Baskets:
+    """Dangling nodes' baskets are exactly {v: 1-damping}, forever (in place)."""
+    if rows.size == 0:
+        return basket
+    rows_d = torch.as_tensor(rows, dtype=torch.int64).to(basket.ids.device)
+    basket.ids[rows_d, 0] = rows_d.to(torch.int32)
+    basket.scores[rows_d, 0] = 1.0 - float(damping)
+    return basket
+
+
+def _resolve_engine(engine: str) -> None:
+    if engine == "dense":
+        raise NotImplementedError(
+            "the dense engine is not ported yet (ROADMAP.md, queue A item 8); "
+            "use engine='sparse' or 'auto'"
+        )
+    if engine not in ("auto", "sparse"):
+        raise ValueError(f"unknown engine {engine!r}")
+
+
+def grank_baskets(
+    graph: Graph,
+    K: int,
+    L: int,
+    iterations: int,
+    damping: float,
+    tolerance: float,
+    elem_budget: int = DEFAULT_ELEM_BUDGET,
+    merge_algo: str | None = None,
+    engine: str = "auto",
+    return_info: bool = False,
+    device=None,
+):
+    """GRank returning ``[N, K]`` basket tensors over internal node ids.
+
+    ``device`` is where the run happens: ``None`` means ``"cuda"``, which
+    raises when no card is present; pass ``"cpu"`` for the CPU.
+    ``merge_algo`` is ``"sort"`` or ``"kernel"``, optionally with
+    ``":<cap>"`` (see ops/merge.py); ``None`` picks the kernel on CUDA and
+    the sort pipeline on the CPU.  ``engine`` is ``"sparse"`` or
+    ``"auto"`` (which is sparse: the dense engine is not ported).
+
+    With ``return_info=True`` returns ``(baskets, info)``, where
+    ``info["iterations_ran"]`` is the number of half-sweeps the loop ran
+    (a tolerance stop can end it before ``iterations``).
+    """
+    check_basket_params(K, L)
+    check_iterations(iterations)
+    check_damping(damping)
+    _resolve_engine(engine)
+    dev = resolve_device(device)
+    algo = resolve_merge_algo(merge_algo, dev)
+
+    n = graph.num_nodes
+    if n == 0:
+        out = empty_baskets(0, K, dev)
+        return (out, {"iterations_ran": 0}) if return_info else out
+
+    # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a power
+    # of two) and gives hub rows (deg > the largest aligned cap) multiple-of-
+    # sub caps and the hierarchical hub merge (see graph._assign_caps).
+    net = net_max_width(algo)
+    plan_L = L if net else None
+    plans = [
+        graph.merge_plan(0, L=plan_L, net_width=net),
+        graph.merge_plan(1, L=plan_L, net_width=net),
+    ]
+    hub_sub = max((net - 1) // L, 1) if net else None
+    dev_buckets = [device_plan(p, dev) for p in plans]
+    damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
+
+    basket = empty_baskets(n, L, dev)
+    _set_dangling(
+        basket,
+        np.concatenate([plans[0].dangling_rows, plans[1].dangling_rows]),
+        damping,
+    )
+    basket, _ = merge_sweep(
+        None, dev_buckets[0] + dev_buckets[1], damping_t, L, algo,
+        out_basket=basket, elem_budget=elem_budget, hub_sub=hub_sub,
+    )
+
+    compute_diff = tolerance >= 0
+    # Per-partition maxDiff slots, initialised to the tolerance so each
+    # partition gets at least one sweep (include/grank.h:87-92).
+    max_diff = [tolerance, tolerance]
+    active = 0
+    i = 0
+    while i < iterations and max(max_diff) >= tolerance:
+        basket, d = merge_sweep(
+            basket, dev_buckets[active], damping_t, L, algo,
+            compute_diff=compute_diff, elem_budget=elem_budget,
+            hub_sub=hub_sub,
+        )
+        max_diff[0] = float(d) if compute_diff else 0.0
+        active = 1 - active
+        max_diff[0], max_diff[1] = max_diff[1], max_diff[0]
+        i += 1
+
+    out = keep_top_chunked(basket.ids, basket.scores, K)
+    if return_info:
+        return out, {"iterations_ran": i}
+    return out
+
+
+def grank(
+    graph: Graph,
+    K: int,
+    L: int,
+    iterations: int,
+    damping: float,
+    tolerance: float,
+    elem_budget: int = DEFAULT_ELEM_BUDGET,
+    merge_algo: str | None = None,
+    engine: str = "auto",
+    device=None,
+) -> Dict[Hashable, Dict[Hashable, float]]:
+    """GRank with the reference's call signature and map-of-maps result
+    (include/grank.h:42-48)."""
+    return baskets_to_dict(
+        grank_baskets(
+            graph, K, L, iterations, damping, tolerance, elem_budget,
+            merge_algo=merge_algo, engine=engine, device=device,
+        ),
+        graph,
+    )
