@@ -6,155 +6,571 @@
 // ops/pallas/merge_kernel.py, body _merge_kernel), which GRank's merge calls for
 // every candidate row whose padded width lies in [256, 8192].
 //
-// Contract (the wrapper, ops/merge_kernel.py, checks shapes and types):
-//   in : ids int32 [C, W] (dead slots PAD_ID = 2^31-1, no negative ids),
-//        scores f32 [C, W]; W a power of two, 256 <= W <= 8192.
-//   out: ids int32 [C, l_pad] (-1 padding), scores f32 [C, l_pad] (0 padding),
-//        l_pad a power of two <= W, rows sorted by descending score.
-//   A run of PAD ids is dropped.  Dead slots sort as -inf, so a live entry
-//   of score 0 (damping 1) still beats a dead slot.
+// Two entry points share one device-side core (merge_kernel below):
+//   ppr_merge_topl         the matrix entry: rows of a [C, W] candidate matrix,
+//                          ids int32 (dead slots PAD_ID or negative), scores
+//                          f32; W a power of two in [2, 8192].
+//   ppr_gather_merge_topl  the gather entry: each block builds its own row from
+//                          the successors' baskets (ids int32 / scores f32
+//                          [N, Lb]), succ int64 [C, D] padded with -1: every
+//                          live basket entry of every valid successor, its
+//                          score times scale[c], plus the self entry
+//                          (rows[c], self_scores[c]) unless self_scores is
+//                          null.  D*Lb (+1) <= 8192.  The [C, W] candidate
+//                          matrix never reaches device memory.
+// Both write [C, out_width] ids (-1 padding) and scores (0 padding), the first
+// out_width <= l_pad slots of the row's top l_pad by descending score, times
+// post_scale[c] when given.  A run of PAD ids is dropped; a live total of 0
+// (damping 1) still beats every dead slot.
 //
-// What bounds it on an H100: each row is read once (8 B per element) and
-// its top l_pad written once, so device memory sets a floor of
-// C*W*8 + C*l_pad*8 bytes at 3.35 TB/s.  The work between is two bitonic
-// networks of W/2 * log2(W) * (log2(W)+1) / 2 compare-exchanges each, which
-// run in shared memory; at these widths the shared-memory traffic of the
-// networks, not device memory, is expected to be what the kernel waits on.
+// What bounds it on an H100.  Device memory sets a floor of one read of each
+// candidate (8 B, or the successor and basket bytes for the gather entry) and
+// one write of each output slot, at 3.35 TB/s: about 10 us for Eat's widest
+// chunk (517 rows of 8192).  The sort is the work between: W/2 * log2(W) *
+// (log2(W)+1)/2 compare-exchanges per row, 372,736 at W=8192.  A sort that
+// runs every stage through shared memory moves ~20 B per compare-exchange and
+// waits on a block barrier per stage (182 per row for two sorts), which
+// put the first version of this kernel 60x above the byte floor.  The design
+// keeps the network out of shared memory:
 //
-// Design: one block per row.  The row's W (id, score) pairs live in dynamic
-// shared memory (64 KB at W=8192, above the 48 KB static limit, hence the
-// cudaFuncSetAttribute below), so device memory is touched once on the way
-// in and once on the way out.  Then
-//   1. a bitonic sort ascending by id, __syncthreads between stages;
-//   2. each run start sums its run serially (runs are short: an id appears
-//      at most once per successor basket) and every other slot, and every
-//      PAD run, becomes dead (score -inf);
-//   3. a bitonic sort descending by score, and the first l_pad slots are
-//      written out.
-// Warp shuffles for the short distances, a pruned top-k in place of the
-// second full sort, and a fused candidate gather are later work.
+//  1. Load.  Each slot becomes one 64-bit key (uint32(id) << 32 | score bits),
+//     a negative id becoming PAD_ID.  One 64-bit compare orders by id, and
+//     equal ids by score bits, so the sorted row, each run's summation order
+//     and hence the output are bitwise deterministic and invariant under a
+//     permutation of the row's candidates.  Slot e*T + t goes to thread t:
+//     neighbouring threads read neighbouring slots (coalesced).  Slots past
+//     the row's width are dead: the row is padded to a power of two
+//     virtually.
+//  2. Sort by id, register-resident.  Thread t holds E keys, elements
+//     t*E .. t*E+E-1 of a bitonic network.  Distances below E run in
+//     registers, distances below 32*E through __shfl_xor_sync, and only those
+//     of 32*E and above through shared memory (10 of 91 stages at W=8192,
+//     E=16, T=512): ~10 barriers per row instead of 182.  Shared-memory slots
+//     are padded one per 16 (pad_idx), so a warp's 64-bit accesses at stride E
+//     are free of bank conflicts.  Once the traffic is gone the sort is bound
+//     by the instructions of its compare-exchanges, so the network is the
+//     direction-free form (sort_keys), which spends none on a direction: the
+//     form with directions took 0.22 ms at W=8192, C=517, this one 0.14 ms
+//     (chip_smoke.py phase 1, H100 80GB HBM3, 700 W).
+//  3. Run sums.  The sorted row goes to shared memory once; each run start sums
+//     its run forward in sorted order.  Every other slot, and a PAD run, is
+//     dead.
+//  4. Exact top-l_pad without a second sort.  A radix select over the
+//     order-preserving bits of the run totals (8-bit digits, shared-memory
+//     histograms with warp-aggregated atomics, 4 passes; dead slots take no
+//     part) finds the l_pad-th largest total.  A block prefix scan compacts
+//     the survivors, ties at the threshold taken in ascending id order, into
+//     at most l_pad keys (~total << 32 | id).  One warp sorts them in
+//     registers and shuffles (l_pad <= 256; the whole block for wider l_pad):
+//     descending by score, ties by ascending id.  Slots past the live count
+//     are written as (-1, 0).
+//
+// Registers: E=16 keys are 32 registers; __launch_bounds__(512, 2) keeps two
+// 512-thread blocks (W=8192) on an SM, each with 68 KB of dynamic shared
+// memory, above the 48 KB static limit, hence cudaFuncSetAttribute below.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kPadId = 0x7fffffff;
+constexpr uint32_t kPadId = 0x7fffffffu;
 constexpr int kMaxWidth = 8192;
-constexpr int kMaxThreads = 512;
+constexpr int kMinSortWidth = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// A dead candidate: PAD id, score 0.
+constexpr uint64_t kDeadKey = static_cast<uint64_t>(kPadId) << 32;
+// An empty slot of the top list: sorts after every survivor.
+constexpr uint64_t kEmptyKey = ~0ull;
 
-__device__ __forceinline__ void swap_pair(int* ids, float* sc, int a, int b) {
-  int ti = ids[a];
-  ids[a] = ids[b];
-  ids[b] = ti;
-  float ts = sc[a];
-  sc[a] = sc[b];
-  sc[b] = ts;
+__device__ __forceinline__ int pad_idx(int i) { return i + (i >> 4); }
+
+__host__ __device__ constexpr int padded_words(int n) { return n + (n >> 4); }
+
+__device__ __forceinline__ uint64_t pack(int id, float score) {
+  const uint32_t u = id < 0 ? kPadId : static_cast<uint32_t>(id);
+  return (static_cast<uint64_t>(u) << 32) | __float_as_uint(score);
 }
 
-__global__ void merge_topl_kernel(const int* __restrict__ in_ids,
-                                  const float* __restrict__ in_scores,
-                                  int* __restrict__ out_ids,
-                                  float* __restrict__ out_scores, int width,
-                                  int l_pad) {
-  extern __shared__ unsigned char smem[];
-  int* ids = reinterpret_cast<int*>(smem);
-  float* sc = reinterpret_cast<float*>(smem + sizeof(int) * width);
+__device__ __forceinline__ uint32_t key_id(uint64_t k) {
+  return static_cast<uint32_t>(k >> 32);
+}
 
-  const int tid = threadIdx.x;
+__device__ __forceinline__ float key_score(uint64_t k) {
+  return __uint_as_float(static_cast<uint32_t>(k));
+}
+
+// Order-preserving map of f32 bits to uint32: every non-NaN total maps to
+// >= 1, so 0 marks a dead slot.
+__device__ __forceinline__ uint32_t ordered(float s) {
+  const uint32_t u = __float_as_uint(s);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(uint32_t m) {
+  return __uint_as_float((m & 0x80000000u) ? (m & 0x7fffffffu) : ~m);
+}
+
+__device__ __forceinline__ uint64_t umin64(uint64_t a, uint64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ uint64_t umax64(uint64_t a, uint64_t b) {
+  return a < b ? b : a;
+}
+
+// Orders a pair ascending: the smaller key to a.
+__device__ __forceinline__ void order_pair(uint64_t& a, uint64_t& b) {
+  const uint64_t lo = umin64(a, b);
+  b = umax64(a, b);
+  a = lo;
+}
+
+// Keeps the smaller of mine and the partner's key when `keep_min`, else the
+// larger.
+__device__ __forceinline__ uint64_t keep(uint64_t mine, uint64_t other,
+                                         bool keep_min) {
+  return ((other < mine) == keep_min) ? other : mine;
+}
+
+// Shared-memory stage of the network: each pair (i, partner) with bit j of i
+// clear, partner = i ^ (k-1) for the flip stage, i + j after it; the smaller
+// key goes to i.
+__device__ __forceinline__ void smem_stage(uint64_t* sm, int t, int nt, int n,
+                                           int k, int j, bool flip) {
+  for (int p = t; p < (n >> 1); p += nt) {
+    const int i = 2 * p - (p & (j - 1));
+    const int l = flip ? (i ^ (k - 1)) : (i + j);
+    const uint64_t a = sm[pad_idx(i)], b = sm[pad_idx(l)];
+    if (b < a) {
+      sm[pad_idx(i)] = b;
+      sm[pad_idx(l)] = a;
+    }
+  }
+  __syncthreads();
+}
+
+// Bitonic sort, ascending, of the n = T*E keys held by the T participating
+// threads (t = 0..T-1, whole warps): key[e] of thread t is element t*E + e.
+// The network is the direction-free form: each merge of two sorted halves
+// of k elements starts with a flip stage (i against i ^ (k-1)) and goes on
+// with half-cleaners (i against i + j), every compare-exchange ascending, so
+// no stage computes a direction.  Stages at distance >= 32*E go through `sm`
+// (pad_idx layout, all threads of the block must call); a single warp
+// (T = 32) never touches `sm`.
+template <int E>
+__device__ __forceinline__ void sort_keys(uint64_t (&key)[E], int t, int n,
+                                          uint64_t* sm) {
+  const int nt = n / E;
+  // merges of up to E elements: inside each thread
+#pragma unroll
+  for (int k = 2; k <= E; k <<= 1) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if ((e & (k >> 1)) == 0) order_pair(key[e], key[e ^ (k - 1)]);
+#pragma unroll
+    for (int jj = k >> 2; jj >= 1; jj >>= 1) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if ((e & jj) == 0) order_pair(key[e], key[e | jj]);
+    }
+  }
+  for (int k = 2 * E; k <= n; k <<= 1) {
+    int j = k >> 1;
+    if (j >= 32 * E) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) sm[pad_idx(t * E + e)] = key[e];
+      __syncthreads();
+      smem_stage(sm, t, nt, n, k, j, true);
+      for (j >>= 1; j >= 32 * E; j >>= 1) smem_stage(sm, t, nt, n, k, j, false);
+      // each thread reads back only the slots it wrote, so the next write
+      // needs no barrier
+#pragma unroll
+      for (int e = 0; e < E; ++e) key[e] = sm[pad_idx(t * E + e)];
+    } else {
+      // flip: element t*E+e against (t ^ (k/E-1))*E + (E-1-e)
+      const int m = k / E - 1;
+      const bool low = (t & (j / E)) == 0;
+#pragma unroll
+      for (int e = 0; e < E / 2; ++e) {
+        const uint64_t o1 = __shfl_xor_sync(kFull, key[E - 1 - e], m);
+        const uint64_t o2 = __shfl_xor_sync(kFull, key[e], m);
+        key[e] = keep(key[e], o1, low);
+        key[E - 1 - e] = keep(key[E - 1 - e], o2, low);
+      }
+      if constexpr (E == 1) {
+        const uint64_t o = __shfl_xor_sync(kFull, key[0], m);
+        key[0] = keep(key[0], o, low);
+      }
+      j >>= 1;
+    }
+    for (; j >= E; j >>= 1) {
+      // half-cleaner: element t*E+e against lane t ^ (j/E), same register
+      const int m = j / E;
+      const bool low = (t & m) == 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        key[e] = keep(key[e], __shfl_xor_sync(kFull, key[e], m), low);
+    }
+#pragma unroll
+    for (int jj = E / 2; jj >= 1; jj >>= 1) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if ((e & jj) == 0) order_pair(key[e], key[e | jj]);
+    }
+  }
+}
+
+// Exclusive prefix sum of v over the block's threads in thread order; the
+// block total goes to *total.  ws holds 33 words.
+__device__ __forceinline__ unsigned block_scan(unsigned v, int t, int nt,
+                                               unsigned* ws, unsigned* total) {
+  const int lane = t & 31, w = t >> 5, nw = nt >> 5;
+  unsigned x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned o = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += o;
+  }
+  if (lane == 31) ws[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    const unsigned y = lane < nw ? ws[lane] : 0u;
+    unsigned z = y;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_up_sync(kFull, z, off);
+      if (lane >= off) z += o;
+    }
+    ws[lane] = z - y;
+    if (lane == 31) ws[32] = z;
+  }
+  __syncthreads();
+  *total = ws[32];
+  return ws[w] + x - v;
+}
+
+// Sorts the first n = T*EF slots of sm (T threads) and writes the row's
+// first out_width slots.
+template <int EF>
+__device__ __forceinline__ void sort_and_store(int t, int n, uint64_t* sm,
+                                               int* out_ids, float* out_scores,
+                                               int out_width, float post) {
+  uint64_t key[EF];
+#pragma unroll
+  for (int e = 0; e < EF; ++e) key[e] = sm[t * EF + e];
+  if (n > 32 * EF) __syncthreads();  // the block sort overwrites sm
+  sort_keys<EF>(key, t, n, sm);
+#pragma unroll
+  for (int e = 0; e < EF; ++e) {
+    const int i = t * EF + e;
+    if (i < out_width) {
+      const bool live = key[e] != kEmptyKey;
+      out_ids[i] = live ? static_cast<int>(static_cast<uint32_t>(key[e])) : -1;
+      out_scores[i] = live ? unordered(~key_id(key[e])) * post : 0.0f;
+    }
+  }
+}
+
+struct Gather {
+  const int* basket_ids;      // [N, lb]
+  const float* basket_scores; // [N, lb]
+  long long n_basket;
+  int lb;
+  const long long* succ;      // [C, d], -1 padded
+  int d;
+  const long long* rows;      // [C], read when self_scores is set
+  const float* scale;         // [C]
+  const float* self_scores;   // [C] or null
+};
+
+// Threads of the widest row a kernel with E keys a thread sorts: E=16 for
+// rows of 4096 and 8192, E=8 below.
+template <int E>
+constexpr int max_threads() {
+  return E == 8 ? 2048 / 8 : kMaxWidth / E;
+}
+
+template <int E, bool kGather>
+__global__ void __launch_bounds__(max_threads<E>(), 2)
+    merge_kernel(const int* __restrict__ in_ids,
+                 const float* __restrict__ in_scores, int width, Gather g,
+                 const float* __restrict__ post_scale, int* __restrict__ out_ids,
+                 float* __restrict__ out_scores, int out_width, int l_pad) {
+  extern __shared__ uint64_t sm[];
+  __shared__ unsigned hist[256];
+  __shared__ unsigned ws[33];
+  __shared__ unsigned sel[3];  // prefix, need, all-live flag
+
+  const int t = threadIdx.x;
   const int nt = blockDim.x;
-  const int64_t row = blockIdx.x;
-  const int* row_ids = in_ids + row * width;
-  const float* row_sc = in_scores + row * width;
-  for (int i = tid; i < width; i += nt) {
-    ids[i] = row_ids[i];
-    sc[i] = row_sc[i];
-  }
-  __syncthreads();
+  const int n = nt * E;
+  const int lane = t & 31;
+  const long long row = blockIdx.x;
 
-  const int half = width >> 1;
-
-  // 1. bitonic sort ascending by id, scores carried.
-  for (int k = 2; k <= width; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = tid; p < half; p += nt) {
-        int i = 2 * p - (p & (j - 1));  // bit j of i is clear
-        int l = i + j;
-        bool asc = (i & k) == 0;
-        int a = ids[i], b = ids[l];
-        if (asc ? (a > b) : (a < b)) swap_pair(ids, sc, i, l);
+  // 1. load, slot e*nt + t to thread t
+  uint64_t key[E];
+  if constexpr (kGather) {
+    const float sc = g.scale[row];
+    const int w_real = g.d * g.lb;
+    const long long* succ = g.succ + row * g.d;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = e * nt + t;
+      uint64_t k = kDeadKey;
+      if (i < w_real) {
+        const int dd = i / g.lb;
+        const long long s = succ[dd];
+        if (s >= 0) {
+          if (s >= g.n_basket) __trap();  // an out-of-range successor
+          const long long off = s * g.lb + (i - dd * g.lb);
+          const int id = g.basket_ids[off];
+          if (id >= 0) k = pack(id, g.basket_scores[off] * sc);
+        }
+      } else if (i == w_real && g.self_scores != nullptr) {
+        k = pack(static_cast<int>(g.rows[row]), g.self_scores[row]);
       }
-      __syncthreads();
+      key[e] = k;
+    }
+  } else {
+    const int* ids = in_ids + row * width;
+    const float* scs = in_scores + row * width;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = e * nt + t;
+      key[e] = i < width ? pack(ids[i], scs[i]) : kDeadKey;
     }
   }
 
-  // 2. run sums.  A run start sums its run into its own slot: only the
-  //    start's thread reads the run's later slots, and no thread writes
-  //    a slot another thread reads.
-  for (int i = tid; i < width; i += nt) {
-    int id = ids[i];
-    if ((i == 0 || ids[i - 1] != id) && id >= 0 && id != kPadId) {
-      float s = sc[i];
-      for (int e = i + 1; e < width && ids[e] == id; ++e) s += sc[e];
-      sc[i] = s;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < width; i += nt) {
-    int id = ids[i];
-    bool live = (i == 0 || ids[i - 1] != id) && id >= 0 && id != kPadId;
-    if (!live) sc[i] = -CUDART_INF_F;
-  }
-  __syncthreads();
+  // 2. sort by id
+  sort_keys<E>(key, t, n, sm);
 
-  // 3. bitonic sort descending by score, ids carried.
-  for (int k = 2; k <= width; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = tid; p < half; p += nt) {
-        int i = 2 * p - (p & (j - 1));
-        int l = i + j;
-        bool desc = (i & k) == 0;
-        float a = sc[i], b = sc[l];
-        if (desc ? (a < b) : (a > b)) swap_pair(ids, sc, i, l);
+  // 3. run sums: a live run start sums its run forward; the rest is dead (0)
+#pragma unroll
+  for (int e = 0; e < E; ++e) sm[pad_idx(t * E + e)] = key[e];
+  __syncthreads();
+  uint32_t tot[E];
+  uint32_t ids[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = t * E + e;
+    const uint32_t id = key_id(key[e]);
+    bool start = true;
+    if (e > 0) {
+      start = key_id(key[e - 1]) != id;
+    } else if (i > 0) {
+      start = key_id(sm[pad_idx(i - 1)]) != id;
+    }
+    uint32_t m = 0;
+    if (start && id != kPadId) {
+      float s = key_score(key[e]);
+      for (int q = i + 1; q < n; ++q) {
+        const uint64_t kq = sm[pad_idx(q)];
+        if (key_id(kq) != id) break;
+        s += key_score(kq);
       }
-      __syncthreads();
+      m = ordered(s);
     }
+    tot[e] = m;
+    ids[e] = id;
   }
 
-  int* o_ids = out_ids + row * l_pad;
-  float* o_sc = out_scores + row * l_pad;
-  for (int i = tid; i < l_pad; i += nt) {
-    float s = sc[i];
-    bool live = s > -CUDART_INF_F;
-    o_ids[i] = live ? ids[i] : -1;
-    o_sc[i] = live ? s : 0.0f;
+  // 4a. radix select: the l_pad-th largest live total, thr, and how many of
+  //     the totals equal to it survive (need).  all_live: every live total
+  //     survives (no more than l_pad of them).
+  uint32_t prefix = 0, need = static_cast<uint32_t>(l_pad);
+  bool all_live = false;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    for (int b = t; b < 256; b += nt) hist[b] = 0;
+    __syncthreads();
+    const uint32_t mask = pass == 0 ? 0u : (0xffffffffu << (shift + 8));
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool in = tot[e] != 0 && (tot[e] & mask) == prefix;
+      const unsigned dg = in ? (tot[e] >> shift) & 0xffu : 256u;
+      const unsigned peers = __match_any_sync(kFull, dg);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[dg], __popc(peers));
+    }
+    __syncthreads();
+    if (t < 32) {
+      unsigned h[8];
+      unsigned own = 0;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        h[b] = hist[lane * 8 + b];
+        own += h[b];
+      }
+      unsigned above = own;  // keys in this lane's bins and all higher ones
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned o = __shfl_down_sync(kFull, above, off);
+        if (lane + off < 32) above += o;
+      }
+      const unsigned total = __shfl_sync(kFull, above, 0);
+      if (pass == 0 && total <= need) {
+        if (lane == 0) {
+          sel[0] = 0;
+          sel[1] = 0;
+          sel[2] = 1;
+        }
+      } else {
+        unsigned cum = above - own;
+#pragma unroll
+        for (int b = 7; b >= 0; --b) {
+          if (cum < need && cum + h[b] >= need) {
+            sel[0] = prefix | (static_cast<uint32_t>(lane * 8 + b) << shift);
+            sel[1] = need - cum;
+            sel[2] = 0;
+          }
+          cum += h[b];
+        }
+      }
+    }
+    __syncthreads();
+    prefix = sel[0];
+    need = sel[1];
+    if (sel[2]) {
+      all_live = true;
+      break;
+    }
   }
+  const uint32_t thr = prefix;  // 0 when all_live: every live total is > 0
+
+  // 4b. compact the survivors into sm[0, kept): totals above thr in any
+  //     order, then the first `need` totals equal to thr in id order
+  unsigned cnt = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    cnt += tot[e] > thr ? 1u : 0u;
+    cnt += (!all_live && tot[e] == thr) ? (1u << 16) : 0u;
+  }
+  unsigned total;
+  const unsigned base = block_scan(cnt, t, nt, ws, &total);
+  const unsigned n_gt = total & 0xffffu;
+  unsigned gt_pos = base & 0xffffu, eq_pos = base >> 16;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const uint64_t out_key = (static_cast<uint64_t>(~tot[e]) << 32) | ids[e];
+    if (tot[e] > thr) {
+      sm[gt_pos++] = out_key;
+    } else if (!all_live && tot[e] == thr) {
+      if (eq_pos < need) sm[n_gt + eq_pos] = out_key;
+      ++eq_pos;
+    }
+  }
+  const int kept = static_cast<int>(n_gt + (all_live ? 0u : need));
+  const int n_final = l_pad < 32 ? 32 : l_pad;
+  for (int i = kept + t; i < n_final; i += nt) sm[i] = kEmptyKey;
+  __syncthreads();
+
+  // 4c. sort the survivors descending by total, ties by ascending id
+  const float post = post_scale != nullptr ? post_scale[row] : 1.0f;
+  int* o_ids = out_ids + row * out_width;
+  float* o_sc = out_scores + row * out_width;
+  if (n_final <= 256) {
+    if (t < 32) {
+      switch (n_final) {
+        case 32: sort_and_store<1>(t, 32, sm, o_ids, o_sc, out_width, post); break;
+        case 64: sort_and_store<2>(t, 64, sm, o_ids, o_sc, out_width, post); break;
+        case 128: sort_and_store<4>(t, 128, sm, o_ids, o_sc, out_width, post); break;
+        default: sort_and_store<8>(t, 256, sm, o_ids, o_sc, out_width, post); break;
+      }
+    }
+  } else {
+    // l_pad >= 512 >= nt, and l_pad <= n, so l_pad / nt is 1..E
+    switch (n_final / nt) {
+      case 1: sort_and_store<1>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
+      case 2: sort_and_store<2>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
+      case 4: sort_and_store<4>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
+      case 8: sort_and_store<8>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
+      default:
+        if constexpr (E >= 16)
+          sort_and_store<16>(t, n_final, sm, o_ids, o_sc, out_width, post);
+        break;
+    }
+  }
+}
+
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+int next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+template <int E, bool kGather>
+int launch(int rows, int n, const int* ids, const float* scores, int width,
+           const Gather& g, const float* post_scale, int* out_ids,
+           float* out_scores, int out_width, int l_pad, cudaStream_t stream) {
+  const int smem = padded_words(n) * static_cast<int>(sizeof(uint64_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_kernel<E, kGather>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_kernel<E, kGather><<<rows, n / E, smem, stream>>>(
+      ids, scores, width, g, post_scale, out_ids, out_scores, out_width, l_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n: the row's sort width, a power of two in [256, 8192].  E=16 keys a thread
+// from 4096 up (256 and 512 threads), E=8 below (32 to 256 threads).
+template <bool kGather>
+int dispatch(int rows, int n, const int* ids, const float* scores, int width,
+             const Gather& g, const float* post_scale, int* out_ids,
+             float* out_scores, int out_width, int l_pad, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n >= 4096)
+    return launch<16, kGather>(rows, n, ids, scores, width, g, post_scale,
+                               out_ids, out_scores, out_width, l_pad, st);
+  return launch<8, kGather>(rows, n, ids, scores, width, g, post_scale,
+                            out_ids, out_scores, out_width, l_pad, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the merge on `stream` for `rows` rows; returns the CUDA error
-// code of the launch (0 on success).  Does not synchronise.
+// The matrix entry.  Launches on `stream` for `rows` rows of width `width`;
+// writes [rows, l_pad].  Returns the CUDA error code of the launch (0 on
+// success).  Does not synchronise.
 int ppr_merge_topl(const int* ids, const float* scores, int* out_ids,
                    float* out_scores, int rows, int width, int l_pad,
                    void* stream) {
   if (rows <= 0) return 0;
-  if (width < 2 || width > kMaxWidth || (width & (width - 1)) != 0 ||
-      l_pad < 1 || l_pad > width || (l_pad & (l_pad - 1)) != 0)
+  if (width < 2 || width > kMaxWidth || !pow2(width) || !pow2(l_pad) ||
+      l_pad > width)
     return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = static_cast<size_t>(width) * (sizeof(int) + sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_topl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = width / 2 < kMaxThreads ? width / 2 : kMaxThreads;
-  merge_topl_kernel<<<rows, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      ids, scores, out_ids, out_scores, width, l_pad);
-  return static_cast<int>(cudaGetLastError());
+  const int n = width < kMinSortWidth ? kMinSortWidth : width;
+  Gather g{};
+  return dispatch<false>(rows, n, ids, scores, width, g, nullptr, out_ids,
+                         out_scores, l_pad, l_pad, stream);
+}
+
+// The gather entry.  Row c's candidates are the live entries of the baskets
+// of succ[c, :] (scaled by scale[c]) and, when self_scores is not null, the
+// self entry (row_ids[c], self_scores[c]).  Writes [rows, out_width], the
+// first out_width slots of the top l_pad, scores times post_scale[c] (when
+// not null).  Returns the CUDA error code of the launch.
+int ppr_gather_merge_topl(const int* basket_ids, const float* basket_scores,
+                          long long n_basket, int lb, const long long* succ,
+                          int d, const long long* row_ids, const float* scale,
+                          const float* self_scores, const float* post_scale,
+                          int* out_ids, float* out_scores, int rows,
+                          int out_width, int l_pad, void* stream) {
+  if (rows <= 0) return 0;
+  const long long w = static_cast<long long>(d) * lb + (self_scores ? 1 : 0);
+  if (lb < 1 || d < 0 || w < 1 || w > kMaxWidth || !pow2(l_pad) ||
+      l_pad > kMaxWidth || out_width < 1 || out_width > l_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int n = next_pow2(static_cast<int>(w));
+  if (n < l_pad) n = l_pad;
+  if (n < kMinSortWidth) n = kMinSortWidth;
+  Gather g{basket_ids, basket_scores, n_basket, lb, succ, d, row_ids, scale,
+           self_scores};
+  return dispatch<true>(rows, n, nullptr, nullptr, 0, g, post_scale, out_ids,
+                        out_scores, out_width, l_pad, stream);
 }
 
 const char* ppr_cuda_error_string(int code) {

@@ -17,7 +17,12 @@ of ``C`` nodes with successor matrix ``succ[C, D]``:
    (:func:`_merge_rows`: the ``sort`` pipeline, or the fused kernel)
 4. optionally the L1 diff against the old basket rows
 
-Rows are processed in chunks of at most ``elem_budget`` candidates.
+Rows are processed in chunks of at most ``elem_budget`` candidates.  The
+kernel pipeline fuses steps 1-3 of a half-sweep's kernel-width bucket into
+the kernel's gather entry (:func:`gather_merge_topl`), which builds no
+``[C, W]`` matrix: its chunks are bounded by the diff's ``[C, 2L]``
+temporaries instead.  On the CPU the entry runs its plain version, so the
+CPU and the card take one path.
 
 ``merge_algo`` names the pipeline: ``"sort"`` (stable sort + segment sums
 + top-k, flat merges, quarter-octave bucket caps) or ``"kernel"`` (the
@@ -39,7 +44,14 @@ from .basket import (
     norm1_rows,
     sort_rows_by_id,
 )
-from .merge_kernel import MAX_KERNEL_WIDTH, PAD_ID, fused_merge_topl
+from .merge_kernel import (
+    MAX_KERNEL_WIDTH,
+    fused_merge_topl,
+    gather_merge_topl,
+    gather_successors,
+    next_pow2,
+    pad_candidates,
+)
 
 # Max elements in a candidate matrix chunk.
 DEFAULT_ELEM_BUDGET = 1 << 22
@@ -81,8 +93,16 @@ def net_max_width(algo: str) -> int | None:
     return max_w if name == "kernel" else None
 
 
-def _next_pow2(x: int) -> int:
-    return 1 << (x - 1).bit_length()
+def _takes_kernel(algo: str, w: int) -> bool:
+    """Whether a candidate row of width ``w`` goes through the kernel:
+    the kernel pipeline, ``w >= MIN_NETWORK_WIDTH`` and its pow2 width
+    within the cap."""
+    name, max_w = _split_algo(algo)
+    return name == "kernel" and w >= MIN_NETWORK_WIDTH and next_pow2(w) <= max_w
+
+
+def _l_pad(L: int) -> int:
+    return next_pow2(max(L, 128))
 
 
 def _merge_rows(
@@ -95,19 +115,12 @@ def _merge_rows(
     Kernel-pipeline rows narrower than MIN_NETWORK_WIDTH, or whose pow2
     width exceeds the cap, take the sort pipeline.
     """
-    name, max_w = _split_algo(algo)
-    w = ids.shape[-1]
-    if name == "sort" or w < MIN_NETWORK_WIDTH or _next_pow2(w) > max_w:
+    if not _takes_kernel(algo, ids.shape[-1]):
         ids, scores = sort_rows_by_id(ids, scores)
         ids, scores = combine_sorted_runs(ids, scores)
         return keep_top(ids, scores, L)
-    l_pad = _next_pow2(max(L, 128))
-    w2 = max(_next_pow2(w), l_pad)
-    ids = torch.where(ids < 0, torch.full_like(ids, PAD_ID), ids)
-    if w2 > w:
-        ids = torch.nn.functional.pad(ids, (0, w2 - w), value=PAD_ID)
-        scores = torch.nn.functional.pad(scores, (0, w2 - w))
-    out_ids, out_scores = fused_merge_topl(ids, scores, l_pad)
+    l_pad = _l_pad(L)
+    out_ids, out_scores = fused_merge_topl(*pad_candidates(ids, scores, l_pad), l_pad)
     return Baskets(out_ids[:, :L], out_scores[:, :L])
 
 
@@ -142,21 +155,6 @@ def _scales(
     raise ValueError(f"unknown merge mode {mode!r}")
 
 
-def _gather_successors(
-    basket: Baskets, succ: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Successor baskets of each row, flattened: [R, D*Lb] ids and scores."""
-    r = succ.shape[0]
-    valid = succ >= 0
-    safe = succ.clamp(min=0)
-    cand_ids = basket.ids[safe]  # [R, D, Lb]
-    cand_scores = basket.scores[safe]
-    slot_valid = valid[..., None] & (cand_ids >= 0)
-    cand_ids = torch.where(slot_valid, cand_ids, torch.full_like(cand_ids, SENTINEL))
-    cand_scores = torch.where(slot_valid, cand_scores, torch.zeros_like(cand_scores))
-    return cand_ids.reshape(r, -1), cand_scores.reshape(r, -1)
-
-
 def _bucket_candidates(
     basket: Baskets | None,
     rows: torch.Tensor,
@@ -184,7 +182,7 @@ def _bucket_candidates(
         cand_ids = cand_ids.to(torch.int32)
         cand_scores = valid.to(torch.float32)
     else:
-        cand_ids, cand_scores = _gather_successors(basket, succ)
+        cand_ids, cand_scores = gather_successors(basket.ids, basket.scores, succ)
     cand_scores = cand_scores * scale[:, None]
     ids = torch.cat([cand_ids, rows[:, None].to(torch.int32)], dim=-1)
     scores = torch.cat([cand_scores, self_scores[:, None]], dim=-1)
@@ -220,12 +218,17 @@ def _hub_merge_chunk(
         succ = torch.nn.functional.pad(succ, (0, g * sub - cap), value=SENTINEL)
     deg = (succ >= 0).sum(dim=-1).to(torch.float32)
     scale, self_scores, post_scale = _scales(deg, damping, mode)
-    cand_ids, cand_scores = _gather_successors(basket, succ.reshape(c * g, sub))
     # the per-successor scale commutes with the merge tree; the self entry
     # joins at the final level only
-    cand_scores = cand_scores * torch.repeat_interleave(scale, g)[:, None]
+    group_succ = succ.reshape(c * g, sub)
+    group_scale = torch.repeat_interleave(scale, g)
     m = min(max(HUB_TOP_M_FACTOR, 1) * L, sub * basket.width)
-    part = _merge_rows(cand_ids, cand_scores, m, algo)
+    if _takes_kernel(algo, sub * basket.width):
+        part = gather_merge_topl(basket.ids, basket.scores, group_succ, None,
+                                 group_scale, None, None, m, _l_pad(m))
+    else:
+        cand_ids, cand_scores = gather_successors(basket.ids, basket.scores, group_succ)
+        part = _merge_rows(cand_ids, cand_scores * group_scale[:, None], m, algo)
     pids = part.ids.reshape(c, g * m)
     pscs = part.scores.reshape(c, g * m)
     # tree-reduce partial top-M lists until one final row fits
@@ -264,12 +267,16 @@ def merge_bucket(
     against the bucket's rows of ``basket`` (zeros unless ``compute_diff``).
 
     ``hub_sub`` routes buckets with cap > hub_sub through the hierarchical
-    hub merge (:func:`_hub_merge_chunk`); the last chunk is ragged.
+    hub merge (:func:`_hub_merge_chunk`); the last chunk is ragged.  Other
+    kernel-width rows of a half-sweep take the kernel's gather entry, in
+    chunks of ``elem_budget // (2L)`` rows.
     """
     c, d = succ.shape
     hub = hub_sub is not None and d > hub_sub and basket is not None
     width = 1 + (d if basket is None else d * basket.width)
-    chunk = int(max(1, min(c, elem_budget // max(width, 1))))
+    gather = not hub and basket is not None and _takes_kernel(algo, width)
+    per_row = 2 * L if gather else width
+    chunk = int(max(1, min(c, elem_budget // max(per_row, 1))))
     parts_i, parts_s, parts_d = [], [], []
     for s0 in range(0, c, chunk):
         rows_c = rows[s0 : s0 + chunk]
@@ -278,6 +285,11 @@ def merge_bucket(
             new = _hub_merge_chunk(
                 basket, rows_c, succ_c, damping, L, mode, algo, hub_sub
             )
+        elif gather:
+            deg = (succ_c >= 0).sum(dim=-1).to(torch.float32)
+            scale, self_scores, post = _scales(deg, damping, mode)
+            new = gather_merge_topl(basket.ids, basket.scores, succ_c, rows_c,
+                                    scale, self_scores, post, L, _l_pad(L))
         else:
             ids, scores, post = _bucket_candidates(
                 basket, rows_c, succ_c, damping, mode

@@ -2,28 +2,38 @@
 top ``l_pad`` by score.
 
 The port of the TPU kernel ``fused_merge_topl`` of the JAX package
-(``ops/pallas/merge_kernel.py``).  Two implementations of one contract:
+(``ops/pallas/merge_kernel.py``).  One CUDA C++ source for Hopper
+(``csrc/merge_topl.cu``, ``sm_90a``), built with ``nvcc`` at first use into
+``build/kernels/`` beside the package and bound through ``ctypes``, has two
+entry points over one device-side core:
 
-* :func:`merge_topl_plain`, plain PyTorch (stable sort, segment sums,
-  -inf masking, ``topk``): what runs for CPU tensors, and what the CUDA
-  kernel is held against on the card;
-* ``csrc/merge_topl.cu``, a CUDA C++ kernel for Hopper (``sm_90a``), built
-  with ``nvcc`` at first use into ``build/kernels/`` beside the package and
-  bound through ``ctypes``.
+* :func:`fused_merge_topl`, the matrix entry: rows of a ``[C, W]``
+  candidate matrix (the init sweep, the hub tree-reduce levels);
+* :func:`gather_merge_topl`, the gather entry: each row's candidates are
+  built inside the kernel from the successors' baskets, so the ``[C, W]``
+  matrix never reaches device memory (GRank's half-sweeps, the hub group
+  level).
 
-:func:`fused_merge_topl` picks by the device of its input: the plain
-version for a CPU tensor, the kernel for a CUDA tensor (a failed build or
-launch raises; nothing falls back).  It counts its kernel launches by
-``(W, l_pad)`` in ``fused_merge_topl.launches``.
+Each has a plain PyTorch version, :func:`merge_topl_plain` and
+:func:`gather_merge_topl_plain`: what runs for CPU tensors, and what the
+kernel is held against on the card.  A wrapper picks by the device of its
+input: the plain version for a CPU tensor, the kernel for a CUDA tensor (a
+failed build or launch raises; nothing falls back).  Each counts its kernel
+launches by ``(W, l_pad)`` in its ``launches`` attribute.
 
-Contract: ``ids``/``scores`` are ``[C, W]``, W a power of two in
-[2, 8192], ids int32 with dead slots ``PAD_ID`` (no negative ids), scores
-float32.  Returns ``[C, l_pad]`` ids (-1 padding) and scores (0 padding),
-rows sorted by descending score; ``l_pad`` is a power of two ``<= W``.  A
-run of PAD ids is dropped, and dead slots rank below every live one, so a
-live score of 0 (damping 1) survives.  Ties (equal scores at the cut, and
-the summation order inside a run) may resolve differently in the two
-implementations.
+Contract of the matrix entry: ``ids``/``scores`` are ``[C, W]``, W a power
+of two in [2, 8192], ids int32 with dead slots ``PAD_ID`` (no negative
+ids), scores float32.  Returns ``[C, l_pad]`` ids (-1 padding) and scores
+(0 padding), rows sorted by descending score; ``l_pad`` is a power of two
+``<= W``.  A run of PAD ids is dropped, and dead slots rank below every
+live one, so a live score of 0 (damping 1) survives.
+
+The kernel's output is bitwise deterministic and does not depend on the
+order of a row's candidates: equal ids are summed in the order of their
+score bits, and ties at the cut go to the smaller id.  The plain versions
+sum in candidate order and cut ties as ``torch.topk`` does, so the two
+agree up to ties at the cut and the last bits of a run's sum
+(``utils/compare.py::topl_max_error``).
 """
 
 from __future__ import annotations
@@ -35,11 +45,11 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .basket import run_index, sort_rows_by_id
+from .basket import SENTINEL, Baskets, run_index, sort_rows_by_id
 
 # Id of a dead slot: sorts after every live id.
 PAD_ID = 2**31 - 1
@@ -105,6 +115,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(so_path)
     lib.ppr_merge_topl.restype = ctypes.c_int
     lib.ppr_merge_topl.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.ppr_gather_merge_topl.restype = ctypes.c_int
+    lib.ppr_gather_merge_topl.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
@@ -181,14 +198,182 @@ def fused_merge_topl(
             ctypes.c_void_p(out_scores.data_ptr()),
             c, w, l_pad, ctypes.c_void_p(stream),
         )
-    if err != 0:
-        raise RuntimeError(
-            f"merge_topl launch failed for [{c}, {w}] -> {l_pad}: "
-            f"{lib.ppr_cuda_error_string(err).decode()} (CUDA error {err})"
-        )
+    _raise_on_error(lib, err, f"merge_topl [{c}, {w}] -> {l_pad}")
     fused_merge_topl.launches[(w, l_pad)] += 1
     return out_ids, out_scores
 
 
-# Kernel launches by (W, l_pad); callers reset it with .clear().
+def _raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what}: launch failed: "
+            f"{lib.ppr_cuda_error_string(err).decode()} (CUDA error {err})"
+        )
+
+
+def next_pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+def pad_candidates(
+    ids: torch.Tensor, scores: torch.Tensor, l_pad: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate rows [C, W] with -1 dead slots -> the matrix entry's
+    input: dead ids become PAD_ID and rows are padded with dead slots to
+    ``max(next_pow2(W), l_pad)``."""
+    w = ids.shape[-1]
+    w2 = max(next_pow2(w), l_pad)
+    ids = torch.where(ids < 0, torch.full_like(ids, PAD_ID), ids)
+    if w2 > w:
+        ids = torch.nn.functional.pad(ids, (0, w2 - w), value=PAD_ID)
+        scores = torch.nn.functional.pad(scores, (0, w2 - w))
+    return ids, scores
+
+
+def gather_successors(
+    basket_ids: torch.Tensor, basket_scores: torch.Tensor, succ: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Successor baskets of each row, flattened: [R, D*Lb] ids and scores;
+    a -1 successor or a dead basket slot gives (-1, 0)."""
+    r = succ.shape[0]
+    valid = succ >= 0
+    safe = succ.clamp(min=0)
+    cand_ids = basket_ids[safe]  # [R, D, Lb]
+    cand_scores = basket_scores[safe]
+    slot_valid = valid[..., None] & (cand_ids >= 0)
+    cand_ids = torch.where(slot_valid, cand_ids, torch.full_like(cand_ids, SENTINEL))
+    cand_scores = torch.where(slot_valid, cand_scores, torch.zeros_like(cand_scores))
+    return cand_ids.reshape(r, -1), cand_scores.reshape(r, -1)
+
+
+def gather_merge_topl_plain(
+    basket_ids: torch.Tensor,
+    basket_scores: torch.Tensor,
+    succ: torch.Tensor,
+    rows: Optional[torch.Tensor],
+    scale: torch.Tensor,
+    self_scores: Optional[torch.Tensor],
+    post_scale: Optional[torch.Tensor],
+    L: int,
+    l_pad: int,
+) -> Baskets:
+    """The gather entry's function in plain PyTorch: the candidate gather,
+    the matrix entry's plain version and the post-scale, in that order."""
+    ids, scores = gather_successors(basket_ids, basket_scores, succ)
+    scores = scores * scale[:, None]
+    if self_scores is not None:
+        ids = torch.cat([ids, rows[:, None].to(torch.int32)], dim=-1)
+        scores = torch.cat([scores, self_scores[:, None]], dim=-1)
+    out_ids, out_scores = merge_topl_plain(*pad_candidates(ids, scores, l_pad), l_pad)
+    out_ids, out_scores = out_ids[:, :L], out_scores[:, :L]
+    if post_scale is not None:
+        out_scores = out_scores * post_scale[:, None]
+    return Baskets(out_ids, out_scores)
+
+
+def _check_gather(basket_ids, basket_scores, succ, rows, scale, self_scores,
+                  post_scale, L, l_pad) -> int:
+    """Checks the gather entry's arguments; returns the candidate width."""
+    if basket_ids.dim() != 2 or basket_ids.shape != basket_scores.shape:
+        raise ValueError(
+            f"basket ids and scores must be [N, Lb] of one shape, got "
+            f"{tuple(basket_ids.shape)} and {tuple(basket_scores.shape)}"
+        )
+    if basket_ids.dtype != torch.int32 or basket_scores.dtype != torch.float32:
+        raise TypeError(
+            f"basket ids must be int32 and scores float32, got "
+            f"{basket_ids.dtype}, {basket_scores.dtype}"
+        )
+    if succ.dim() != 2 or succ.dtype != torch.int64:
+        raise TypeError(f"succ must be int64 [C, D], got {succ.dtype} {tuple(succ.shape)}")
+    c = succ.shape[0]
+    if self_scores is not None and rows is None:
+        raise ValueError("a self entry needs rows")
+    per_row = {"scale": scale, "rows": rows, "self_scores": self_scores,
+               "post_scale": post_scale}
+    for name, x in per_row.items():
+        if x is None:
+            continue
+        want = torch.int64 if name == "rows" else torch.float32
+        if x.shape != (c,) or x.dtype != want:
+            raise TypeError(
+                f"{name} must be {want} [{c}], got {x.dtype} {tuple(x.shape)}"
+            )
+        if x.device != succ.device:
+            raise ValueError(f"{name} must be on the device of succ")
+    if basket_ids.device != succ.device or basket_scores.device != succ.device:
+        raise ValueError("baskets and succ must be on one device")
+    w = succ.shape[1] * basket_ids.shape[1] + (self_scores is not None)
+    if w < 1 or next_pow2(w) > MAX_KERNEL_WIDTH:
+        raise ValueError(
+            f"candidate width {w} must lie in [1, {MAX_KERNEL_WIDTH}]"
+        )
+    if l_pad < 1 or l_pad > MAX_KERNEL_WIDTH or l_pad & (l_pad - 1):
+        raise ValueError(f"l_pad must be a power of two <= {MAX_KERNEL_WIDTH}, got {l_pad}")
+    if L < 1 or L > l_pad:
+        raise ValueError(f"L must lie in [1, l_pad={l_pad}], got {L}")
+    return w
+
+
+def gather_merge_topl(
+    basket_ids: torch.Tensor,
+    basket_scores: torch.Tensor,
+    succ: torch.Tensor,
+    rows: Optional[torch.Tensor],
+    scale: torch.Tensor,
+    self_scores: Optional[torch.Tensor],
+    post_scale: Optional[torch.Tensor],
+    L: int,
+    l_pad: int,
+) -> Baskets:
+    """Merged top-``L`` of each row's successor baskets (the gather entry).
+
+    Row c's candidates are the live entries (id >= 0) of the baskets
+    ``basket_ids/basket_scores[succ[c, d]]`` of its valid successors
+    (``succ >= 0``), scores times ``scale[c]``, and the self entry
+    ``(rows[c], self_scores[c])`` unless ``self_scores`` is None (the hub
+    group level).  Returns Baskets ``[C, L]``: the first L of the row's
+    top ``l_pad`` after the merge, scores times ``post_scale[c]`` (None:
+    1).  Needs ``D*Lb (+1) <= 8192`` and ``L <= l_pad``.
+    """
+    w = _check_gather(basket_ids, basket_scores, succ, rows, scale,
+                      self_scores, post_scale, L, l_pad)
+    if succ.device.type == "cpu":
+        return gather_merge_topl_plain(basket_ids, basket_scores, succ, rows,
+                                       scale, self_scores, post_scale, L, l_pad)
+    if succ.device.type != "cuda":
+        raise ValueError(f"unsupported device {succ.device}")
+    lib = load_library()
+    c, d = succ.shape
+    out_ids = torch.empty((c, L), dtype=torch.int32, device=succ.device)
+    out_scores = torch.empty((c, L), dtype=torch.float32, device=succ.device)
+    if c == 0:
+        return Baskets(out_ids, out_scores)
+    basket_ids = basket_ids.contiguous()
+    basket_scores = basket_scores.contiguous()
+    succ = succ.contiguous()
+    scale = scale.contiguous()
+    # keep the contiguous copies referenced until the launch is enqueued
+    opt = [None if x is None else x.contiguous() for x in (rows, self_scores, post_scale)]
+
+    def ptr(x):
+        return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+    with torch.cuda.device(succ.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ppr_gather_merge_topl(
+            ptr(basket_ids), ptr(basket_scores), basket_ids.shape[0],
+            basket_ids.shape[1], ptr(succ), d, ptr(opt[0]), ptr(scale),
+            ptr(opt[1]), ptr(opt[2]), ptr(out_ids), ptr(out_scores),
+            c, L, l_pad, ctypes.c_void_p(stream),
+        )
+    w2 = max(next_pow2(w), l_pad)
+    _raise_on_error(lib, err, f"gather_merge_topl [{c}, {w}] -> {l_pad}")
+    gather_merge_topl.launches[(w2, l_pad)] += 1
+    return Baskets(out_ids, out_scores)
+
+
+# Kernel launches by (W, l_pad), W the row's padded width; callers reset
+# them with .clear().
 fused_merge_topl.launches = collections.Counter()
+gather_merge_topl.launches = collections.Counter()

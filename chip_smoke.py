@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the fused merge kernel from the repository's sources, holds it
-against its plain PyTorch version on the card, then drives the port's main
-path: sparse GRank on the bundled Eat graph (scored against the exact
-oracle) and two half-sweeps on a 1M-node power-law graph that takes the hub
-path.  Each phase prints one JSON line; any failure exits non-zero.  The
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
-no result, when no CUDA device is present.
+Builds the fused merge kernel from the repository's sources and holds both
+of its entries (the matrix entry ``fused_merge_topl`` and the gather entry
+``gather_merge_topl``) against their plain PyTorch versions on the card,
+checks that their output is bitwise deterministic and free of the order of
+a row's candidates, and times them.  Then it drives the port's main path:
+sparse GRank on the bundled Eat graph (scored against the exact oracle) and
+two half-sweeps on a 1M-node power-law graph that takes the hub path,
+counting each entry's launches in each.  Each phase prints one JSON line;
+any failure exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -26,10 +30,21 @@ import torch
 K, L, ITERS, DAMPING, TOL = 50, 100, 30, 0.85, 1e-4
 WIDTHS = (256, 512, 1024, 2048, 4096, 8192)
 L_PADS = (128, 256)
+# (W, l_pad) at the ends of the contract: a row below the kernel's sort width,
+# l_pad below a warp, and l_pad above 256 (the block-wide final sort)
+EDGE_CASES = ((2, 2), (64, 8), (512, 512), (8192, 1024), (8192, 8192))
 ROWS_PER_CASE = 320
 # Eat's widest merge chunks at L=100 and the default element budget
-# (1<<22 candidates): C rows of width W.
+# (1<<22 candidates): C rows of width W.  The gather entry takes them as
+# D = (W - 1) // L successors a row.
 EAT_SHAPES = ((8192, 517), (4096, 1048))
+# Eat's widest buckets (partition 0): C rows of D successors, one gather
+# launch each on the main path.
+EAT_BUCKETS = ((81, 2213), (40, 2063))
+EAT_NODES = 23132
+# The hub group level at L=100: groups of 81 successors, top 200 of l_pad 256,
+# no self entry.
+HUB_GROUP = (81, 1024, 200, 256)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit operations/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -92,19 +107,67 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def network_ops(w: int) -> int:
-    """Compare-exchanges of one bitonic sort of a width-w row."""
-    lg = int(math.log2(w))
-    return w // 2 * lg * (lg + 1) // 2
-
-
-def bound_ms(c: int, w: int, l_pad: int) -> tuple:
-    """Least time for the merge of [c, w] -> [c, l_pad] on an H100: each
-    input byte read once and each output byte written once, against the
-    compare-exchanges of one id-sort network at one 32-bit op each."""
-    t_bytes = (c * w * 8 + c * l_pad * 8) / HBM_BYTES_PER_S * 1e3
-    t_ops = c * network_ops(w) / FP32_OPS_PER_S * 1e3
+def bound_ms(nbytes: int, ops: float) -> tuple:
+    """Least time on an H100 for work that must move ``nbytes`` bytes and do
+    ``ops`` 32-bit operations: the larger of the two times at peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sort_ops(live: torch.Tensor) -> float:
+    """The fewest comparisons that order rows of ``live`` keys each,
+    log2(live!) a row, at one 32-bit operation each."""
+    return float((torch.lgamma(live.double() + 1) / math.log(2)).sum())
+
+
+def matrix_work(ids: torch.Tensor, l_pad: int, pad_id: int) -> tuple:
+    """(bytes, operations) of the matrix entry on these inputs: the [C, W]
+    matrix read once and [C, l_pad] written once; a sort of each row's live
+    candidates."""
+    c, w = ids.shape
+    return c * w * 8 + c * l_pad * 8, sort_ops((ids != pad_id).sum(dim=1))
+
+
+def gather_work(basket_ids: torch.Tensor, succ: torch.Tensor, out_l: int) -> tuple:
+    """(bytes, operations) of the gather entry on these inputs with a self
+    entry: the successor matrix and the four per-row vectors (rows int64,
+    scale, self score, post-scale f32) read once, the basket row of each
+    distinct valid successor read once, [C, out_l] written once; a sort of
+    each row's live candidates (live basket slots of valid successors, and
+    the self entry)."""
+    c, d = succ.shape
+    lb = basket_ids.shape[1]
+    valid = succ >= 0
+    distinct = int(torch.unique(succ[valid]).numel())
+    live = ((basket_ids[succ.clamp(min=0)] >= 0) & valid[..., None]).sum(dim=(1, 2))
+    nbytes = c * d * 8 + c * 20 + distinct * lb * 8 + c * out_l * 8
+    return nbytes, sort_ops(live + 1)
+
+
+def gather_inputs(rng: np.random.Generator, c: int, d: int, dev):
+    """Baskets [EAT_NODES, L] like GRank's (a tenth of the slots dead, rows
+    of at most unit mass), and c rows of ragged degree in (d/2, d]."""
+    ids = rng.integers(0, EAT_NODES, (EAT_NODES, L)).astype(np.int32)
+    ids[rng.random((EAT_NODES, L)) < 0.1] = -1
+    sc = np.where(ids >= 0, rng.random((EAT_NODES, L)) / L, 0).astype(np.float32)
+    succ = rng.integers(0, EAT_NODES, (c, d)).astype(np.int64)
+    deg = rng.integers(d // 2 + 1, d + 1, c)
+    succ[np.arange(d)[None, :] >= deg[:, None]] = -1
+    rows = rng.choice(EAT_NODES, c, replace=False).astype(np.int64)
+    return [torch.as_tensor(x, device=dev) for x in (ids, sc, succ, rows)]
+
+
+def grank_scales(succ: torch.Tensor):
+    from approximated_personalized_pagerank_tpu_torch.ops.merge import _scales
+
+    deg = (succ >= 0).sum(dim=-1).to(torch.float32)
+    return _scales(deg, torch.tensor(DAMPING, device=succ.device), "grank")
+
+
+def same_bits(a, b) -> bool:
+    return bool(torch.equal(a[0], b[0])) and bool(
+        torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
 
 
 def measured_merges(graph, half_sweeps: int) -> int:
@@ -134,53 +197,147 @@ def phase_device():
 
 
 def phase_kernel():
-    """Phase 1: the kernel against its plain version at every (W, l_pad),
-    and both timed at Eat's widest chunk shapes."""
-    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel
+    """Phase 1: both entries against their plain versions, at every
+    (W, l_pad) for the matrix entry and at Eat's widest buckets and a hub
+    group shape for the gather entry; the determinism and order checks; and
+    both entries timed at Eat's widest shapes."""
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
     from approximated_personalized_pagerank_tpu_torch.utils.compare import (
         topl_max_error,
     )
 
-    kernel = merge_kernel.fused_merge_topl
-    plain = merge_kernel.merge_topl_plain
+    kernel, plain = mk.fused_merge_topl, mk.merge_topl_plain
+    gather, gather_plain = mk.gather_merge_topl, mk.gather_merge_topl_plain
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+
+    def err_of(k, p):
+        torch.cuda.synchronize()
+        return topl_max_error(k[0].cpu().numpy(), k[1].cpu().numpy(),
+                              p[0].cpu().numpy(), p[1].cpu().numpy(), ATOL)
+
     max_err = 0.0
     cases = []
     for w in WIDTHS:
-        ids_np, sc_np = kernel_cases(w, ROWS_PER_CASE, rng, merge_kernel.PAD_ID)
+        ids_np, sc_np = kernel_cases(w, ROWS_PER_CASE, rng, mk.PAD_ID)
         ids = torch.as_tensor(ids_np, device=dev)
         sc = torch.as_tensor(sc_np, device=dev)
         for l_pad in L_PADS:
-            k_ids, k_sc = kernel(ids, sc, l_pad)
-            p_ids, p_sc = plain(ids, sc, l_pad)
-            torch.cuda.synchronize()
-            err = topl_max_error(k_ids.cpu().numpy(), k_sc.cpu().numpy(),
-                               p_ids.cpu().numpy(), p_sc.cpu().numpy(), ATOL)
+            err = err_of(kernel(ids, sc, l_pad), plain(ids, sc, l_pad))
             max_err = max(max_err, err)
             cases.append({"W": w, "l_pad": l_pad, "rows": ROWS_PER_CASE,
                           "max_abs_err": err})
+    for w, l_pad in EDGE_CASES:
+        ids_np = rng.integers(0, max(2, w // 4), (ROWS_PER_CASE, w)).astype(np.int32)
+        ids_np[rng.random((ROWS_PER_CASE, w)) < 0.2] = mk.PAD_ID
+        ids = torch.as_tensor(ids_np, device=dev)
+        sc = torch.as_tensor(rng.random((ROWS_PER_CASE, w)).astype(np.float32) / w,
+                             device=dev)
+        err = err_of(kernel(ids, sc, l_pad), plain(ids, sc, l_pad))
+        max_err = max(max_err, err)
+        cases.append({"W": w, "l_pad": l_pad, "rows": ROWS_PER_CASE,
+                      "max_abs_err": err})
+
+    # the gather entry: Eat's widest buckets (self entry, l_pad 128), a hub
+    # group shape (no self entry, l_pad 256) and a row with l_pad 512
+    g_err = 0.0
+    g_cases = []
+    for d, c, out_l, l_pad, self_entry in (
+        [(d, c, L, 128, True) for d, c in EAT_BUCKETS]
+        + [HUB_GROUP + (False,), (20, 256, 400, 512, True)]  # and l_pad > 256
+    ):
+        b_ids, b_sc, succ, rows = gather_inputs(rng, c, d, dev)
+        scale, self_sc, post = grank_scales(succ)
+        if not self_entry:
+            self_sc, post = None, None
+        args = (b_ids, b_sc, succ, rows, scale, self_sc, post, out_l, l_pad)
+        err = err_of(gather(*args), gather_plain(*args))
+        g_err = max(g_err, err)
+        g_cases.append({"D": d, "C": c, "L": out_l, "l_pad": l_pad,
+                        "self_entry": self_entry, "max_abs_err": err})
+
+    # bitwise: two launches of one input; a row's candidates in another order
+    ids_np, sc_np = kernel_cases(8192, ROWS_PER_CASE, rng, mk.PAD_ID)
+    perm = rng.permutation(8192)
+    ids, sc = torch.as_tensor(ids_np, device=dev), torch.as_tensor(sc_np, device=dev)
+    first = kernel(ids, sc, 128)
+    check(same_bits(kernel(ids, sc, 128), first), "matrix entry: two launches differ")
+    check(same_bits(kernel(ids[:, perm], sc[:, perm], 128), first),
+          "matrix entry: permuted columns change the output")
+    d, c = EAT_BUCKETS[0]
+    b_ids, b_sc, succ, rows = gather_inputs(rng, c, d, dev)
+    scale, self_sc, post = grank_scales(succ)
+    first = gather(b_ids, b_sc, succ, rows, scale, self_sc, post, L, 128)
+    again = gather(b_ids, b_sc, succ, rows, scale, self_sc, post, L, 128)
+    succ_perm = succ[:, torch.as_tensor(rng.permutation(d), device=dev)]
+    permuted = gather(b_ids, b_sc, succ_perm, rows, scale, self_sc, post, L, 128)
+    check(same_bits(again, first), "gather entry: two launches differ")
+    check(same_bits(permuted, first), "gather entry: permuted successors change the output")
+
     timings = []
     for w, c in EAT_SHAPES:
-        ids_np = rng.integers(0, 23132, (c, w)).astype(np.int32)
-        ids_np[rng.random((c, w)) < 0.15] = merge_kernel.PAD_ID
+        ids_np = rng.integers(0, EAT_NODES, (c, w)).astype(np.int32)
+        ids_np[rng.random((c, w)) < 0.15] = mk.PAD_ID
         ids = torch.as_tensor(ids_np, device=dev)
         sc = torch.as_tensor(rng.random((c, w)).astype(np.float32) / w, device=dev)
-        ms = time_ms(lambda: kernel(ids, sc, 128), 20)
-        plain_ms = time_ms(lambda: plain(ids, sc, 128), 5)
-        b_ms, b_by = bound_ms(c, w, 128)
-        timings.append({"W": w, "C": c, "l_pad": 128, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-    emit({"phase": 1, "atol": ATOL, "max_abs_err": max_err, "cases": cases,
-          "timings": timings})
-    return max_err, timings
+        work = matrix_work(ids, 128, mk.PAD_ID)
+        b_ms, b_by = bound_ms(*work)
+        timings.append({"entry": "matrix", "W": w, "C": c, "l_pad": 128,
+                        "ms": time_ms(lambda: kernel(ids, sc, 128), 20),
+                        "plain_ms": time_ms(lambda: plain(ids, sc, 128), 5),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_bytes": work[0], "bound_ops": work[1]})
+    for d, c in [((w - 1) // L, c) for w, c in EAT_SHAPES] + list(EAT_BUCKETS):
+        b_ids, b_sc, succ, rows = gather_inputs(rng, c, d, dev)
+        scale, self_sc, post = grank_scales(succ)
+        args = (b_ids, b_sc, succ, rows, scale, self_sc, post, L, 128)
+        w = mk.next_pow2(d * L + 1)
+        work = gather_work(b_ids, succ, L)
+        b_ms, b_by = bound_ms(*work)
+        # the matrix entry on the same rows' candidates
+        cand = mk.gather_successors(b_ids, b_sc, succ)
+        cand_ids = torch.cat([cand[0], rows[:, None].to(torch.int32)], dim=-1)
+        cand_sc = torch.cat([cand[1] * scale[:, None], self_sc[:, None]], dim=-1)
+        m_ids, m_sc = mk.pad_candidates(cand_ids, cand_sc, 128)
+        timings.append({"entry": "gather", "W": w, "D": d, "C": c, "l_pad": 128,
+                        "ms": time_ms(lambda: gather(*args), 20),
+                        "matrix_same_rows_ms": time_ms(lambda: kernel(m_ids, m_sc, 128), 20),
+                        "plain_ms": time_ms(lambda: gather_plain(*args), 5),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_bytes": work[0], "bound_ops": work[1]})
+    emit({"phase": 1, "atol": ATOL, "max_abs_err": max_err,
+          "gather_max_abs_err": g_err, "bitwise_checks": "passed",
+          "cases": cases, "gather_cases": g_cases, "timings": timings})
+    return max_err, g_err, timings
 
 
-def phase_eat() -> int:
+def launch_counts():
+    """The two entries' launch counters, by (W, l_pad)."""
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+
+    return {"fused_merge_topl": mk.fused_merge_topl.launches,
+            "gather_merge_topl": mk.gather_merge_topl.launches}
+
+
+def clear_counts() -> None:
+    for counter in launch_counts().values():
+        counter.clear()
+
+
+def read_counts() -> dict:
+    return {name: dict(c) for name, c in launch_counts().items()}
+
+
+def launches_json(counts: dict) -> dict:
+    return {name: {f"{w}x{lp}": v for (w, lp), v in sorted(c.items())}
+            for name, c in counts.items()}
+
+
+def phase_eat() -> dict:
     """Phase 2: the headline, GRank on Eat through the kernel, against the
     sort pipeline and the exact oracle.  ``wall_s`` is the median of
     EAT_REPEATS timed calls; the launch counts are the first call's.
-    Returns the main path's launches."""
+    Returns the main path's launches of each entry."""
     from approximated_personalized_pagerank_tpu_torch import (
         benchmark_sampled,
         grank_baskets,
@@ -188,23 +345,20 @@ def phase_eat() -> int:
         sample_result,
     )
     from approximated_personalized_pagerank_tpu_torch.ops.basket import jaccard_rows
-    from approximated_personalized_pagerank_tpu_torch.ops.merge_kernel import (
-        fused_merge_topl as kernel,
-    )
 
     graph = load_eat_graph()
     grank_baskets(graph, K, L, 2, DAMPING, TOL, return_info=True)
     torch.cuda.synchronize()
-    kernel.launches.clear()
+    clear_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     baskets, info = grank_baskets(graph, K, L, ITERS, DAMPING, TOL, return_info=True)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    launches = dict(kernel.launches)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    n_launch = sum(launches.values())
-    check(n_launch > 0, "the Eat run launched no merge kernel")
+    check(sum(launches["gather_merge_topl"].values()) > 0,
+          "the Eat run launched no gather merge kernel")
     check(tuple(baskets.ids.shape) == (graph.num_nodes, K), "Eat baskets have the wrong shape")
     check(bool(torch.isfinite(baskets.scores).all()), "non-finite Eat scores")
     iters = info["iterations_ran"]
@@ -228,7 +382,7 @@ def phase_eat() -> int:
           "edges": graph.num_edges, "wall_s": wall, "walls_s": walls,
           "iterations_ran": iters,
           "basket_merges_per_s": measured_merges(graph, iters) / wall,
-          "kernel_launches": {f"{w}x{lp}": v for (w, lp), v in sorted(launches.items())},
+          "kernel_launches": launches_json(launches),
           "peak_bytes": peak, "sort_wall_s": sort_wall,
           "sort_iterations_ran": sort_info["iterations_ran"],
           "kernel_vs_sort_jaccard": agree,
@@ -243,15 +397,15 @@ def phase_eat() -> int:
     check(agree >= 0.98, f"kernel vs sort mean jaccard {agree} < 0.98")
     check(stats["jaccard average"] >= 0.90, "Eat jaccard_average < 0.90")
     check(stats["recall average"] >= 0.94, "Eat recall_average < 0.94")
-    return n_launch
+    return launches
 
 
-def phase_scale() -> None:
-    """Phase 3: two half-sweeps at 1M nodes, through the hub path."""
+def phase_scale() -> dict:
+    """Phase 3: two half-sweeps at 1M nodes, through the hub path.  Returns
+    the launches of each entry."""
     from approximated_personalized_pagerank_tpu_torch import grank_baskets
     from approximated_personalized_pagerank_tpu_torch.ops.merge_kernel import (
         MAX_KERNEL_WIDTH,
-        fused_merge_topl as kernel,
     )
     from approximated_personalized_pagerank_tpu_torch.utils.synthetic import (
         powerlaw_graph,
@@ -264,15 +418,16 @@ def phase_scale() -> None:
     hub_rows = sum(b.rows.size for p in plans for b in p.buckets if b.cap > hub_sub)
     setup_s = time.perf_counter() - t0
     check(hub_rows > 0, "the 1M graph has no hub rows")
-    kernel.launches.clear()
+    clear_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, info = grank_baskets(big, K, L, 2, DAMPING, -1.0, return_info=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernel.launches)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    wide = sum(v for (w, lp), v in launches.items() if lp == 256)
+    # the hub group level, through the gather entry at l_pad 256
+    wide = sum(v for (w, lp), v in launches["gather_merge_topl"].items() if lp == 256)
     rows = torch.as_tensor(
         np.random.default_rng(1).choice(big.num_nodes, 4096, replace=False),
         device="cuda",
@@ -282,10 +437,12 @@ def phase_scale() -> None:
     emit({"phase": 3, "graph": "powerlaw(1e6, 1e7, seed=7, locality=0.8)",
           "setup_s": setup_s, "wall_s": wall,
           "iterations_ran": info["iterations_ran"], "peak_bytes": peak,
-          "hub_rows": int(hub_rows), "l_pad_256_launches": wide,
-          "kernel_launches": {f"{w}x{lp}": v for (w, lp), v in sorted(launches.items())},
+          "hub_rows": int(hub_rows), "hub_group_gather_launches": wide,
+          "kernel_launches": launches_json(launches),
           "basket_merges_per_s": measured_merges(big, 2) / wall})
-    check(wide > 0, "no l_pad=256 (hub group) launches at 1M nodes")
+    check(wide > 0, "no hub group (gather, l_pad=256) launches at 1M nodes")
+    check(sum(launches["fused_merge_topl"].values()) > 0,
+          "no matrix-entry (hub tree-reduce) launches at 1M nodes")
     check(np.isfinite(sc).all(), "non-finite scores at 1M nodes")
     for r in range(ids.shape[0]):
         live = ids[r] >= 0
@@ -293,6 +450,7 @@ def phase_scale() -> None:
         check(np.all(np.diff(s) <= 0), f"1M row {r}: not descending")
         check(np.unique(ids[r][live]).size == live.sum(), f"1M row {r}: repeated ids")
         check(s.sum() <= 1 + 1e-4, f"1M row {r}: row sum {s.sum()} > 1")
+    return launches
 
 
 def main() -> int:
@@ -300,16 +458,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name, count, smi = phase_device()
-    max_err, timings = phase_kernel()
-    n_launch = phase_eat()
-    phase_scale()
-    t = timings[0]  # Eat's widest chunk, W=8192
-    emit({"kernels": [{
-        "name": "fused_merge_topl", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": n_launch, "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
-    }]})
+    max_err, g_err, timings = phase_kernel()
+    runs = [phase_eat(), phase_scale()]  # the main path's two runs
+    launches = {k: sum(sum(r[k].values()) for r in runs) for k in runs[0]}
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the main path")
+    matrix = timings[0]  # Eat's widest chunk, W=8192, C=517
+    gather = next(t for t in timings  # Eat's widest bucket, one launch
+                  if t["entry"] == "gather" and t["C"] == EAT_BUCKETS[0][1])
+    emit({"kernels": [
+        {"name": name_, "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES, "launches": launches[name_], "max_abs_err": err,
+         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+         "bound_by": t["bound_by"], "library_ms": None}
+        for name_, err, t in (("fused_merge_topl", max_err, matrix),
+                              ("gather_merge_topl", g_err, gather))
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

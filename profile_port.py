@@ -9,8 +9,9 @@ half-sweeps on ``powerlaw_graph(1_000_000, 10_000_000, seed=7,
 locality=0.8)``.  For each it prints one JSON line: host wall time, the
 summed time of all device activities (kernels and copies), the device's
 idle share of the host wall time of an unprofiled run (the work runs on one
-stream, so device activities do not overlap), and the device activities and
-host operators with the most time.  Needs a CUDA card.
+stream, so device activities do not overlap), the merge kernel's device
+time and share, the kernel launches per half-sweep, and the device
+activities and host operators with the most time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def profiled(name: str, fn) -> None:
+def profiled(name: str, fn, half_sweeps: int) -> None:
     _timed(fn)  # warm-up: builds the kernel, fills the allocator's pools
     wall = _timed(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -48,6 +49,11 @@ def profiled(name: str, fn) -> None:
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     device_s = sum(_device_us(e) for e in device) / 1e6
     kernels = sorted(device, key=_device_us, reverse=True)[:12]
+    merge_s = sum(_device_us(e) for e in device if "merge_kernel" in e.key) / 1e6
+    # basket rows read by advanced indexing (basket.ids[...]) outside the kernel
+    vgather = [e for e in device if "vectorized_gather" in e.key]
+    launches = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                   and e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
     host = sorted(
         (e for e in events if e.device_type == DeviceType.CPU),
         key=lambda e: e.self_cpu_time_total, reverse=True,
@@ -59,6 +65,12 @@ def profiled(name: str, fn) -> None:
         "device_busy_s": device_s,
         "device_idle_share": 1.0 - device_s / wall,
         "device_activities": sum(e.count for e in device),
+        "merge_kernel_s": merge_s,
+        "merge_kernel_share_of_busy": merge_s / device_s,
+        "vectorized_gather_calls": sum(e.count for e in vgather),
+        "vectorized_gather_ms": sum(_device_us(e) for e in vgather) / 1e3,
+        "kernel_launches": launches,
+        "launches_per_half_sweep": launches / half_sweeps,
         "top_device": [
             {"name": e.key[:80], "calls": e.count, "device_ms": _device_us(e) / 1e3}
             for e in kernels
@@ -79,9 +91,11 @@ def main() -> int:
 
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     eat = load_eat_graph()
-    profiled("eat_grank", lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4))
+    # Eat runs all 30 half-sweeps at this tolerance (chip_smoke.py phase 2)
+    profiled("eat_grank", lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4), 30)
     big = powerlaw_graph(1_000_000, 10_000_000, seed=7, locality=0.8)
-    profiled("powerlaw_1m_2_sweeps", lambda: grank_baskets(big, K, L, 2, DAMPING, -1.0))
+    profiled("powerlaw_1m_2_sweeps",
+             lambda: grank_baskets(big, K, L, 2, DAMPING, -1.0), 2)
     return 0
 
 
