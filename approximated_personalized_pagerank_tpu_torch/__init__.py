@@ -1,7 +1,8 @@
 """All-sources approximated personalized PageRank in PyTorch and CUDA.
 
 The port of ``approximated_personalized_pagerank_tpu`` (JAX) to one NVIDIA
-H100: sparse GRank, the exact PPR oracle and the quality harness, with the
+H100: sparse GRank, sparse MCCompletePathV2 (threefry walks bit for bit
+the JAX package's), the exact PPR oracle and the quality harness, with the
 fused basket merge as a hand-written CUDA kernel (ops/merge_kernel.py).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -29,9 +30,11 @@ def load_eat_graph() -> Graph:
 from .models.benchmark import benchmark_algorithm, benchmark_sampled, sample_result
 from .models.common import baskets_to_dict
 from .models.grank import grank, grank_baskets
+from .models.mccompletepathv2 import mccompletepathv2, mccompletepathv2_baskets
 from .models.ppr_single_source import ppr_single_source, ppr_single_source_batch
 from .ops.basket import Baskets
 from .ops.merge_kernel import fused_merge_topl
+from .ops.walk import walk_baskets
 
 __all__ = [
     "Graph",
@@ -40,6 +43,9 @@ __all__ = [
     "load_eat_graph",
     "grank",
     "grank_baskets",
+    "mccompletepathv2",
+    "mccompletepathv2_baskets",
+    "walk_baskets",
     "ppr_single_source",
     "ppr_single_source_batch",
     "benchmark_algorithm",

@@ -19,6 +19,9 @@ Also computed here, once per graph and on the host (numpy):
   nodes grouped by rounded-up out-degree, successors padded into dense
   ``[rows, cap]`` matrices.
 
+The graph also caches its CSR on each device it is asked for, in the
+walker's layout (:meth:`Graph.device_graph`).
+
 Plans and partitions are byte-equal to those of the JAX package, so both
 packages sweep the same rows in the same buckets.
 """
@@ -26,11 +29,17 @@ packages sweep the same rows in the same buckets.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Hashable, Iterable, List, Mapping, Sequence, Tuple
+from typing import (
+    Any, Dict, Hashable, Iterable, List, Mapping, NamedTuple, Sequence, Tuple,
+)
 
 import numpy as np
+import torch
 
-__all__ = ["Graph", "EllBucket", "MergePlan", "load_csv_graph", "MAX_BUCKET_ROWS"]
+__all__ = [
+    "Graph", "DeviceGraph", "EllBucket", "MergePlan", "load_csv_graph",
+    "MAX_BUCKET_ROWS",
+]
 
 # Sentinel for "no node" in padded index matrices / basket slots.
 SENTINEL = -1
@@ -40,6 +49,13 @@ SENTINEL = -1
 # 2^18 rows bound that buffer at ~2 * L * 2^18 * 4 B (~210 MB at L=100).
 # Part of the plan layout, so it matches the JAX package's value.
 MAX_BUCKET_ROWS = 1 << 18
+
+
+class DeviceGraph(NamedTuple):
+    """The CSR adjacency on one device, in the walker's layout."""
+
+    start_deg: torch.Tensor  # int64[N, 2]: (indptr[v], out_degree[v])
+    indices: torch.Tensor  # int64[E]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +196,7 @@ class Graph:
         self._csc: Tuple[np.ndarray, np.ndarray] | None = None
         self._partition: np.ndarray | None = None
         self._plans: Dict[Any, MergePlan] = {}
+        self._device_graphs: Dict[str, DeviceGraph] = {}
 
     # ------------------------------------------------------------------ vocab
     @property
@@ -379,6 +396,19 @@ class Graph:
         plan = MergePlan(buckets=tuple(buckets), dangling_rows=dangling)
         self._plans[cache_key] = plan
         return plan
+
+    # ------------------------------------------------------------ device CSR
+    def device_graph(self, device) -> "DeviceGraph":
+        """The CSR on ``device`` in the walker's layout (ops/walk.py);
+        cached per device."""
+        dev = torch.device(device)
+        if str(dev) not in self._device_graphs:
+            start_deg = np.stack([self.indptr[:-1], self.out_degree], axis=-1)
+            self._device_graphs[str(dev)] = DeviceGraph(
+                start_deg=torch.as_tensor(start_deg.astype(np.int64)).to(dev),
+                indices=torch.as_tensor(self.indices.astype(np.int64)).to(dev),
+            )
+        return self._device_graphs[str(dev)]
 
     def __repr__(self) -> str:
         return f"Graph(num_nodes={self.num_nodes}, num_edges={self.num_edges})"

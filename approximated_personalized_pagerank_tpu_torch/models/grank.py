@@ -36,7 +36,7 @@ from ..ops.merge import (
 )
 from ..utils.device import resolve_device
 from ..utils.validation import check_basket_params, check_damping, check_iterations
-from .common import baskets_to_dict
+from .common import baskets_to_dict, check_engine
 
 
 def _set_dangling(basket: Baskets, rows: np.ndarray, damping: float) -> Baskets:
@@ -47,16 +47,6 @@ def _set_dangling(basket: Baskets, rows: np.ndarray, damping: float) -> Baskets:
     basket.ids[rows_d, 0] = rows_d.to(torch.int32)
     basket.scores[rows_d, 0] = 1.0 - float(damping)
     return basket
-
-
-def _resolve_engine(engine: str) -> None:
-    if engine == "dense":
-        raise NotImplementedError(
-            "the dense engine is not ported yet (ROADMAP.md, queue A item 8); "
-            "use engine='sparse' or 'auto'"
-        )
-    if engine not in ("auto", "sparse"):
-        raise ValueError(f"unknown engine {engine!r}")
 
 
 def grank_baskets(
@@ -88,7 +78,7 @@ def grank_baskets(
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
-    _resolve_engine(engine)
+    check_engine(engine)
     dev = resolve_device(device)
     algo = resolve_merge_algo(merge_algo, dev)
 
