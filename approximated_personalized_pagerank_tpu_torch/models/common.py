@@ -1,4 +1,4 @@
-"""Engine selection and result conversion shared by the models."""
+"""Result conversion shared by the models."""
 
 from __future__ import annotations
 
@@ -6,18 +6,6 @@ from typing import Dict, Hashable
 
 from ..graph import Graph
 from ..ops.basket import Baskets
-
-
-def check_engine(engine: str) -> None:
-    """``"auto"`` and ``"sparse"`` run the sparse engine; ``"dense"`` is
-    not ported yet."""
-    if engine == "dense":
-        raise NotImplementedError(
-            "the dense engine is not ported yet (ROADMAP.md, queue A item 8); "
-            "use engine='sparse' or 'auto'"
-        )
-    if engine not in ("auto", "sparse"):
-        raise ValueError(f"unknown engine {engine!r}")
 
 
 def baskets_to_dict(

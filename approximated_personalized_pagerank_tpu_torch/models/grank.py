@@ -15,7 +15,8 @@ Reference: ``ppr::grank`` (include/grank.h:42-150).  Semantics preserved:
 
 Baskets are ``[N, L]`` id/score tensors; each half-sweep merges the active
 partition's degree buckets (ops/merge.py).  The loop runs on the host and
-reads the half-sweep's max L1 diff once per half-sweep.
+reads the half-sweep's max L1 diff once per half-sweep.  Graphs up to
+16,384 nodes take the dense engine by default (ops/dense.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from ..graph import Graph
 from ..ops.basket import Baskets, empty_baskets, keep_top_chunked
+from ..ops.dense import dense_grank_run, use_dense_engine
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
     device_plan,
@@ -36,7 +38,7 @@ from ..ops.merge import (
 )
 from ..utils.device import resolve_device
 from ..utils.validation import check_basket_params, check_damping, check_iterations
-from .common import baskets_to_dict, check_engine
+from .common import baskets_to_dict
 
 
 def _set_dangling(basket: Baskets, rows: np.ndarray, damping: float) -> Baskets:
@@ -59,6 +61,8 @@ def grank_baskets(
     elem_budget: int = DEFAULT_ELEM_BUDGET,
     merge_algo: str | None = None,
     engine: str = "auto",
+    matmul_dtype=None,
+    exact_trunc: bool = False,
     return_info: bool = False,
     device=None,
 ):
@@ -66,26 +70,39 @@ def grank_baskets(
 
     ``device`` is where the run happens: ``None`` means ``"cuda"``, which
     raises when no card is present; pass ``"cpu"`` for the CPU.
-    ``merge_algo`` is ``"sort"`` or ``"kernel"``, optionally with
+
+    ``engine``: ``"sparse"`` is the merge pipeline over degree buckets;
+    ``"dense"`` runs each half-sweep as one matrix product over an
+    ``[N, N]`` score matrix (ops/dense.py); ``"auto"`` picks dense up to
+    ``PPR_DENSE_MAX_NODES`` (16,384) nodes, as the JAX package does.
+    ``merge_algo`` (sparse) is ``"sort"`` or ``"kernel"``, optionally with
     ``":<cap>"`` (see ops/merge.py); ``None`` picks the kernel on CUDA and
-    the sort pipeline on the CPU.  ``engine`` is ``"sparse"`` or
-    ``"auto"`` (which is sparse: the dense engine is not ported).
+    the sort pipeline on the CPU.  ``matmul_dtype`` (dense) is the product's
+    input dtype, bfloat16 on the card by default; ``exact_trunc`` (dense)
+    keeps exactly L entries a row at each cut.
 
     With ``return_info=True`` returns ``(baskets, info)``, where
     ``info["iterations_ran"]`` is the number of half-sweeps the loop ran
-    (a tolerance stop can end it before ``iterations``).
+    (a tolerance stop can end it before ``iterations``); the dense engine
+    adds ``info["flops"]``, its products' FLOPs.
     """
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
-    check_engine(engine)
     dev = resolve_device(device)
     algo = resolve_merge_algo(merge_algo, dev)
 
     n = graph.num_nodes
+    dense = use_dense_engine(n, engine)
     if n == 0:
         out = empty_baskets(0, K, dev)
         return (out, {"iterations_ran": 0}) if return_info else out
+    if dense:
+        return dense_grank_run(
+            graph, K, L, iterations, damping, tolerance,
+            matmul_dtype=matmul_dtype, exact_trunc=exact_trunc,
+            return_info=return_info, device=dev,
+        )
 
     # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a power
     # of two) and gives hub rows (deg > the largest aligned cap) multiple-of-
@@ -144,6 +161,8 @@ def grank(
     elem_budget: int = DEFAULT_ELEM_BUDGET,
     merge_algo: str | None = None,
     engine: str = "auto",
+    matmul_dtype=None,
+    exact_trunc: bool = False,
     device=None,
 ) -> Dict[Hashable, Dict[Hashable, float]]:
     """GRank with the reference's call signature and map-of-maps result
@@ -151,7 +170,8 @@ def grank(
     return baskets_to_dict(
         grank_baskets(
             graph, K, L, iterations, damping, tolerance, elem_budget,
-            merge_algo=merge_algo, engine=engine, device=device,
+            merge_algo=merge_algo, engine=engine, matmul_dtype=matmul_dtype,
+            exact_trunc=exact_trunc, device=device,
         ),
         graph,
     )

@@ -6,8 +6,10 @@ The reference walks nodes lazily in a heuristic execution order
 (``map = {v: 1/factor} + sum of successors' baskets; keepTop(L); *factor``,
 mccompletepathv2.h:211-250) can reuse its successors' results.  Here, as in
 the JAX package, every source walks at once (ops/walk.py) and the combine
-is a batched merge sweep over all nodes (``merge_sweep(mode="mc_combine")``),
-with R walks per node as in the reference.
+is a batched merge sweep over all nodes (``merge_sweep(mode="mc_combine")``,
+the sparse engine) or a matrix product over an ``[N, N]`` count matrix (the
+dense engine, ops/dense.py, which ``engine="auto"`` picks up to 32,768
+nodes), with R walks per node as in the reference.
 
 ``combine_passes`` repeats the combine on the previous pass's baskets: the
 parallel analogue of the reference's propagation of already-combined
@@ -31,6 +33,7 @@ import torch
 
 from ..graph import Graph
 from ..ops.basket import empty_baskets, keep_top_chunked
+from ..ops.dense import MC_DENSE_MAX_NODES, dense_mc_run, use_dense_engine
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
     device_plan,
@@ -47,7 +50,7 @@ from ..utils.validation import (
     check_iterations,
     check_successor_choice,
 )
-from .common import baskets_to_dict, check_engine
+from .common import baskets_to_dict
 
 
 def mccompletepathv2_baskets(
@@ -61,6 +64,7 @@ def mccompletepathv2_baskets(
     elem_budget: int = DEFAULT_ELEM_BUDGET,
     merge_algo: str | None = None,
     engine: str = "auto",
+    matmul_dtype=None,
     return_info: bool = False,
     successor_choice: str = "uniform",
     device=None,
@@ -77,24 +81,35 @@ def mccompletepathv2_baskets(
     (ops/walk.walk_baskets).  ``device``: None means ``"cuda"``, which
     raises without a card; pass ``"cpu"`` for the CPU.
 
-    ``engine``: ``"sparse"`` or ``"auto"``, which is sparse.  The JAX
-    package's auto picks its dense engine up to 32,768 nodes (Eat
-    included); the dense engine and its ``matmul_dtype``, and the sharded
-    ``mesh`` runs, are not ported yet (ROADMAP.md, queue A items 8-9).
+    ``engine``: ``"sparse"`` combines through the merge pipeline,
+    ``"dense"`` keeps the walk counts in an ``[N, N]`` matrix and combines
+    with matrix products (ops/dense.py; ``matmul_dtype`` is their input
+    dtype, bfloat16 on the card by default), ``"auto"`` picks dense up to
+    ``PPR_MC_DENSE_MAX_NODES`` (32,768) nodes, Eat included, as the JAX
+    package does.  The sharded ``mesh`` runs are not ported yet
+    (ROADMAP.md, queue A item 9).
     """
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
     check_combine_passes(combine_passes)
     check_successor_choice(successor_choice)
-    check_engine(engine)
     dev = resolve_device(device)
     algo = resolve_merge_algo(merge_algo, dev)
 
     n = graph.num_nodes
+    dense = use_dense_engine(n, engine, max_nodes=MC_DENSE_MAX_NODES)
     if n == 0:
         out = empty_baskets(0, K, dev)
         return (out, {"walk_steps": 0}) if return_info else out
+    if dense:
+        return dense_mc_run(
+            graph, K, L, iterations, damping, seed=seed,
+            combine_passes=combine_passes, matmul_dtype=matmul_dtype,
+            return_info=return_info,
+            stratified=successor_choice == "stratified", merge_algo=algo,
+            device=dev,
+        )
 
     basket = walk_baskets(
         graph, L, iterations, damping, seed=seed, return_info=return_info,
@@ -131,6 +146,7 @@ def mccompletepathv2(
     seed: int | None = None,
     combine_passes: int = 2,
     engine: str = "auto",
+    matmul_dtype=None,
     device=None,
 ) -> Dict[Hashable, Dict[Hashable, float]]:
     """MCCompletePathV2 with the reference call signature and map-of-maps
@@ -138,7 +154,8 @@ def mccompletepathv2(
     return baskets_to_dict(
         mccompletepathv2_baskets(
             graph, K, L, iterations, damping, seed=seed,
-            combine_passes=combine_passes, engine=engine, device=device,
+            combine_passes=combine_passes, engine=engine,
+            matmul_dtype=matmul_dtype, device=device,
         ),
         graph,
     )

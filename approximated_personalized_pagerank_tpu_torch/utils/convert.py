@@ -8,7 +8,7 @@ and compare a single step.
 
 from __future__ import annotations
 
-from typing import Hashable, Sequence
+from typing import Hashable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,3 +38,19 @@ def baskets_from_numpy(ids: np.ndarray, scores: np.ndarray, device) -> Baskets:
         torch.as_tensor(ids.astype(np.int32)).to(device),
         torch.as_tensor(scores.astype(np.float32)).to(device),
     )
+
+
+def dense_state_from_numpy(
+    A0: np.ndarray, A1: np.ndarray, S: np.ndarray, device, dtype=torch.float32
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense engine's state (the partitions' adjacency rows ``A0``
+    ``[n0, n_pad]`` and ``A1`` ``[n1, n_pad]``, the score matrix ``S``
+    ``[n_pad, n_pad]``) on ``device`` in ``dtype``, from numpy arrays."""
+    A0, A1, S = (np.asarray(x, dtype=np.float32) for x in (A0, A1, S))
+    n_pad = S.shape[0]
+    if S.shape != (n_pad, n_pad) or A0.shape[1:] != (n_pad,) or A1.shape[1:] != (n_pad,):
+        raise ValueError(
+            f"A0, A1 must be [n_p, n_pad] and S [n_pad, n_pad], got "
+            f"{A0.shape}, {A1.shape}, {S.shape}"
+        )
+    return tuple(torch.tensor(x, dtype=dtype, device=device) for x in (A0, A1, S))

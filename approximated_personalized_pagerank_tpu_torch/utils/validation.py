@@ -14,6 +14,7 @@ __all__ = [
     "check_damping",
     "check_combine_passes",
     "check_successor_choice",
+    "check_shards",
     "check_test_nodes",
 ]
 
@@ -48,6 +49,12 @@ def check_successor_choice(successor_choice: str) -> None:
             f"unknown successor_choice {successor_choice!r} "
             "(expected 'uniform' or 'stratified')"
         )
+
+
+def check_shards(n_shards: int) -> None:
+    # grankMulti's "nThreads must be positive" (header-only/grankMulti.h:299-304)
+    if n_shards <= 0:
+        raise ValueError("n_shards must be positive")
 
 
 def check_test_nodes(test_nodes: int) -> None:

@@ -19,9 +19,17 @@ counting each entry's launches in each:
   trace bitwise equal on the card and the CPU, threefry bits equal on
   both, trace and counts engines equal, two runs of one seed equal) and
   the kernel entries held and timed at the MC path's own shapes;
-* phase 5: the walks alone (R=200) on the phase 3 graph.
+* phase 5: the walks alone (R=200) on the phase 3 graph;
+* phase 6: the dense engine: (a) GRank on Eat, timed, its FLOP rate and
+  quality; (b) dense (float32, exact truncation) against sparse on Eat,
+  with a bfloat16 control that must fail its bounds; (c) MC on Eat through
+  ``engine="auto"``, which is dense, then its walks and its combine run
+  apart, timed, and bitwise equal to the call; (d) dense and sparse GRank
+  at the auto cutoff, 16,384 nodes; (e) the CLI on the sample graph,
+  saved and held bitwise against a direct call.
 
-Each phase prints one JSON line; any failure exits non-zero.  The last line
+Phases 2-4 name ``engine="sparse"``.  Each phase (each part of phase 6)
+prints one JSON line; any failure exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when no CUDA device is present.
 """
@@ -70,6 +78,14 @@ MC_REPEATS = 3
 MC_UNROLL = 32  # hops per macro step of the walks (ops/walk.py default)
 # the walks at 1M nodes (bench.py's scale run): L, R
 WALK_L, WALK_R = 100, 200
+# phase 6, the dense engine: timed calls per measurement; the auto cutoff's
+# graph (16,384 nodes at Eat's 13.5 edges a node); H100 SXM dense bf16 peak
+DENSE_REPEATS = 3
+CUTOFF_NODES, CUTOFF_EDGES = 16_384, 221_184
+BF16_OPS_PER_S = 989e12
+# phase 6b's bounds on the scores of ids both engines keep: the largest
+# difference, and the least share within 1e-5 (see engines_agree)
+SHARED_ATOL, SHARED_CLOSE, SHARED_CLOSE_SHARE = 5e-4, 1e-5, 0.99
 
 
 def emit(obj) -> None:
@@ -369,12 +385,13 @@ def phase_eat() -> dict:
     from approximated_personalized_pagerank_tpu_torch.ops.basket import jaccard_rows
 
     graph = load_eat_graph()
-    grank_baskets(graph, K, L, 2, DAMPING, TOL, return_info=True)
+    grank_baskets(graph, K, L, 2, DAMPING, TOL, engine="sparse", return_info=True)
     torch.cuda.synchronize()
     clear_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    baskets, info = grank_baskets(graph, K, L, ITERS, DAMPING, TOL, return_info=True)
+    baskets, info = grank_baskets(graph, K, L, ITERS, DAMPING, TOL, engine="sparse",
+                                  return_info=True)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = read_counts()
@@ -386,14 +403,15 @@ def phase_eat() -> dict:
     iters = info["iterations_ran"]
     for _ in range(EAT_REPEATS - 1):  # the run-to-run spread of the wall time
         t0 = time.perf_counter()
-        grank_baskets(graph, K, L, ITERS, DAMPING, TOL)
+        grank_baskets(graph, K, L, ITERS, DAMPING, TOL, engine="sparse")
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
 
     t0 = time.perf_counter()
     sorted_b, sort_info = grank_baskets(
-        graph, K, L, ITERS, DAMPING, TOL, merge_algo="sort", return_info=True
+        graph, K, L, ITERS, DAMPING, TOL, merge_algo="sort", engine="sparse",
+        return_info=True,
     )
     torch.cuda.synchronize()
     sort_wall = time.perf_counter() - t0
@@ -443,7 +461,8 @@ def phase_scale() -> tuple:
     clear_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out, info = grank_baskets(big, K, L, 2, DAMPING, -1.0, return_info=True)
+    out, info = grank_baskets(big, K, L, 2, DAMPING, -1.0, engine="sparse",
+                              return_info=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -639,12 +658,14 @@ def phase_mc() -> dict:
 
     graph = load_eat_graph()
     args = (graph, MC_K, MC_L, MC_R, DAMPING)
-    mccompletepathv2_baskets(*args, seed=0)
+    # the sparse engine: auto takes the dense one on Eat (phase 6)
+    mccompletepathv2_baskets(*args, seed=0, engine="sparse")
     torch.cuda.synchronize()
     clear_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    baskets, info = mccompletepathv2_baskets(*args, seed=1, return_info=True)
+    baskets, info = mccompletepathv2_baskets(*args, seed=1, engine="sparse",
+                                             return_info=True)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = read_counts()
@@ -657,7 +678,7 @@ def phase_mc() -> dict:
     check(bool(torch.isfinite(baskets.scores).all()), "non-finite MC scores")
     for _ in range(MC_REPEATS - 1):
         t0 = time.perf_counter()
-        again = mccompletepathv2_baskets(*args, seed=1)
+        again = mccompletepathv2_baskets(*args, seed=1, engine="sparse")
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         check(same_bits(again, baskets), "two MC runs with seed 1 differ")
@@ -675,7 +696,7 @@ def phase_mc() -> dict:
     check(walk_info["walk_steps"] == info["walk_steps"],
           "the walks alone and MC's walks took different steps")
     t0 = time.perf_counter()
-    sorted_b = mccompletepathv2_baskets(*args, seed=1, merge_algo="sort")
+    sorted_b = mccompletepathv2_baskets(*args, seed=1, merge_algo="sort", engine="sparse")
     torch.cuda.synchronize()
     sort_wall = time.perf_counter() - t0
     samples = [sample_result(b, graph, 200, True, seed=0) for b in (baskets, sorted_b)]
@@ -738,6 +759,245 @@ def phase_walk_scale(big) -> dict:
     return launches
 
 
+def emit_dense(part: str, smi: str, obj: dict) -> None:
+    emit({"phase": 6, "part": part, "nvidia_smi": smi, **obj})
+
+
+def timed(fn):
+    """(result, seconds) of one call, ended by a synchronize."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def quality(baskets, graph) -> dict:
+    """jaccard / recall / kendall averages against the exact oracle (200
+    strict sources, seed 0)."""
+    from approximated_personalized_pagerank_tpu_torch import benchmark_sampled, sample_result
+
+    (stats,) = benchmark_sampled([sample_result(baskets, graph, 200, True, seed=0)], graph)
+    return {"jaccard_average": stats["jaccard average"], "jaccard_min": stats["jaccard min"],
+            "recall_average": stats["recall average"],
+            "kendall_average": stats["kendall average"]}
+
+
+def dense_grank_eat(graph, smi: str) -> dict:
+    """Phase 6a: dense GRank on Eat (bench.py::bench_dense_eat): a warm-up
+    of 2 half-sweeps, then the median of DENSE_REPEATS calls; the product
+    and the rest of one partition-0 half-sweep timed alone.  Returns the
+    launches of each merge entry (none: no kernel is on this path)."""
+    from approximated_personalized_pagerank_tpu_torch import grank_baskets
+    from approximated_personalized_pagerank_tpu_torch.ops import dense as td
+
+    run = lambda it: grank_baskets(graph, K, L, it, DAMPING, TOL, engine="dense",  # noqa: E731
+                                   return_info=True)
+    _, warm_s = timed(lambda: run(2))
+    clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(DENSE_REPEATS):
+        (baskets, info), s = timed(lambda: run(ITERS))
+        walls.append(s)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls))
+    check(tuple(baskets.ids.shape) == (graph.num_nodes, K), "dense Eat baskets have the wrong shape")
+    check(bool(torch.isfinite(baskets.scores).all()), "non-finite dense Eat scores")
+    # one partition-0 half-sweep, split: the product, then the rest
+    plan = td.build_dense_plan(graph, DAMPING)
+    A0, _, S = td._dense_init(plan, DAMPING, L, torch.bfloat16, False, "cuda")
+    mm_ms = time_ms(lambda: td._mm_f32(A0, S), 5)
+    half_ms = time_ms(lambda: td._dense_half(A0, S, 0, td._self_score(DAMPING, "cuda"), L,
+                                             False, True), 5)
+    del A0, S
+    flops = info["flops"]
+    q = quality(baskets, graph)
+    emit_dense("a: dense GRank on Eat", smi, {
+        "K": K, "L": L, "half_sweeps": ITERS, "tol": TOL, "matmul_dtype": "bfloat16",
+        "n_pad": plan.n_pad, "n0": plan.n0, "n1": plan.n1,
+        "warmup_2_half_sweeps_s": warm_s, "wall_s": wall, "walls_s": walls,
+        "iterations_ran": info["iterations_ran"], "flops": flops,
+        "tflops_per_s": flops / wall / 1e12, "bf16_peak_share": flops / wall / BF16_OPS_PER_S,
+        "half_sweep_ms": half_ms, "half_sweep_product_ms": mm_ms,
+        "product_tflops_per_s": 2 * plan.n0 * plan.n_pad ** 2 / mm_ms / 1e9,
+        "peak_bytes": peak, "kernel_launches": launches_json(launches), **q})
+    check(q["jaccard_average"] >= 0.90, "dense Eat jaccard_average < 0.90")
+    check(q["recall_average"] >= 0.94, "dense Eat recall_average < 0.94")
+    return launches
+
+
+def engines_agree(graph, smi: str) -> None:
+    """Phase 6b: dense (float32, exact truncation) against sparse (sort
+    pipeline), 4 half-sweeps, no early stop: mean per-row jaccard, and the
+    score differences of ids both keep.
+
+    The engines break ties at a cut differently (the dense one by lowest
+    column of the partition order), and a node whose degree exceeds L has
+    a tied cut already at init; a row that then reads another tied
+    successor set moves the scores of ids both keep.  So the shared ids are
+    held to SHARED_ATOL at most and SHARED_CLOSE_SHARE of them within
+    SHARED_CLOSE.  A control run with the default bfloat16 products and
+    state must fail one of the three bounds: it shows they can see a state
+    rounded to bfloat16."""
+    from approximated_personalized_pagerank_tpu_torch import grank_baskets
+    from approximated_personalized_pagerank_tpu_torch.ops.basket import jaccard_rows
+
+    def against_sparse(dense) -> dict:
+        rows_j = jaccard_rows(dense.ids, sparse.ids)
+        both = ((dense.ids[:, :, None] == sparse.ids[:, None, :])
+                & (dense.ids[:, :, None] >= 0))
+        diff = torch.where(both, (dense.scores[:, :, None] - sparse.scores[:, None, :]).abs(),
+                           0.0)
+        shared = int(both.sum())
+        close = int((both & (diff <= SHARED_CLOSE)).sum())
+        return {"mean_row_jaccard": float(rows_j.mean()),
+                "rows_with_other_ids": int((rows_j < 1).sum()),
+                "shared_ids": shared, "shared_ids_within_1e-5": close,
+                "shared_share_within_1e-5": close / shared,
+                "rows_with_a_shared_diff_over_1e-5":
+                    int((diff.amax(dim=(1, 2)) > SHARED_CLOSE).sum()),
+                "max_shared_score_diff": float(diff.max())}
+
+    def fails(m: dict) -> list:
+        return [msg for bad, msg in (
+            (m["mean_row_jaccard"] < 0.98, "mean row jaccard < 0.98"),
+            (m["max_shared_score_diff"] > SHARED_ATOL,
+             f"shared-id score difference > {SHARED_ATOL}"),
+            (m["shared_share_within_1e-5"] < SHARED_CLOSE_SHARE,
+             f"share of shared ids within 1e-5 < {SHARED_CLOSE_SHARE}")) if bad]
+
+    run = lambda dtype: grank_baskets(  # noqa: E731
+        graph, K, L, 4, DAMPING, -1.0, engine="dense", matmul_dtype=dtype, exact_trunc=True)
+    dense, dense_s = timed(lambda: run(torch.float32))
+    sparse, sparse_s = timed(lambda: grank_baskets(
+        graph, K, L, 4, DAMPING, -1.0, engine="sparse", merge_algo="sort"))
+    control, control_s = timed(lambda: run(torch.bfloat16))
+    m, c = against_sparse(dense), against_sparse(control)
+    emit_dense("b: dense f32 exact vs sparse sort on Eat", smi, {
+        "half_sweeps": 4, "dense_f32_wall_s": dense_s, "sparse_sort_wall_s": sparse_s,
+        **m, "shared_atol": SHARED_ATOL, "shared_close_share_floor": SHARED_CLOSE_SHARE,
+        "bf16_control": {"wall_s": control_s, **c, "fails": fails(c)}})
+    check(not fails(m), f"dense f32 vs sparse: {fails(m)}")
+    check(bool(fails(c)), "the bfloat16 control passed phase 6b's bounds")
+
+
+def dense_mc_eat(graph, smi: str) -> dict:
+    """Phase 6c: MCCompletePathV2 on Eat through engine="auto" (dense) with
+    seed 1; then its walks alone and its combine alone, timed apart: a
+    second run of seed 1, held bitwise against the call.  Returns the
+    launches of each merge entry in the call."""
+    from approximated_personalized_pagerank_tpu_torch import (
+        mccompletepathv2_baskets,
+        walk_baskets,
+    )
+    from approximated_personalized_pagerank_tpu_torch.ops import dense as td
+
+    check(td.use_dense_engine(graph.num_nodes, "auto", td.MC_DENSE_MAX_NODES),
+          "engine='auto' does not resolve to dense for Eat MC")
+    args = (graph, MC_K, MC_L, MC_R, DAMPING)
+    clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (baskets, info), first_s = timed(lambda: mccompletepathv2_baskets(
+        *args, seed=1, return_info=True))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(baskets.ids.shape) == (graph.num_nodes, MC_K), "dense MC baskets have the wrong shape")
+    check(bool(torch.isfinite(baskets.scores).all()), "non-finite dense MC scores")
+    walk, walk_s = timed(lambda: walk_baskets(graph, MC_L, MC_R, DAMPING, seed=1))
+    n_pad = td._padded(graph.num_nodes)
+    edges, factor = td._mc_edges(graph, DAMPING, "cuda")
+    combine, combine_s = timed(lambda: td._dense_mc_combine(
+        edges, factor, walk, n_pad, MC_L, MC_K, 2, torch.bfloat16))
+    check(same_bits(combine, baskets), "walks + combine alone differ from the MC call")
+    flops = 2 * 2 * graph.num_nodes * n_pad * n_pad  # 2 passes of [n, n_pad] @ [n_pad, n_pad]
+    q = quality(baskets, graph)
+    emit_dense("c: MC on Eat through engine='auto' (dense)", smi, {
+        "K": MC_K, "L": MC_L, "R": MC_R, "combine_passes": 2, "wall_s": first_s,
+        "walks_alone_s": walk_s, "combine_alone_s": combine_s,
+        "combine_flops": flops, "combine_tflops_per_s": flops / combine_s / 1e12,
+        "walk_steps": info["walk_steps"], "abandoned_walks": info["abandoned_walks"],
+        "total_walks": info["total_walks"], "peak_bytes": peak,
+        "kernel_launches": launches_json(launches), "walks_plus_combine_bitwise_equal": True, **q})
+    check(q["jaccard_average"] >= 0.94, "dense Eat MC jaccard_average < 0.94")
+    return launches
+
+
+def dense_cutoff(smi: str) -> None:
+    """Phase 6d: canonical GRank at the auto cutoff (16,384 nodes, Eat's
+    13.5 edges a node), dense and sparse, the median of DENSE_REPEATS calls
+    each after a warm-up call."""
+    from approximated_personalized_pagerank_tpu_torch import grank_baskets
+    from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
+
+    g = powerlaw_graph(CUTOFF_NODES, CUTOFF_EDGES, seed=7)
+    out = {"graph": f"powerlaw_graph({CUTOFF_NODES}, {CUTOFF_EDGES}, seed=7)",
+           "nodes": g.num_nodes, "edges": g.num_edges}
+    for engine in ("dense", "sparse"):
+        run = lambda: grank_baskets(g, K, L, ITERS, DAMPING, TOL, engine=engine,  # noqa: E731
+                                    return_info=True)
+        timed(run)
+        walls = []
+        for _ in range(DENSE_REPEATS):
+            (b, info), s = timed(run)
+            walls.append(s)
+        check(bool(torch.isfinite(b.scores).all()), f"non-finite {engine} scores at the cutoff")
+        out[f"{engine}_wall_s"] = float(np.median(walls))
+        out[f"{engine}_walls_s"] = walls
+        out[f"{engine}_iterations_ran"] = info["iterations_ran"]
+    emit_dense("d: dense vs sparse at the auto cutoff", smi, out)
+
+
+def dense_cli(smi: str) -> None:
+    """Phase 6e: the CLI on the bundled sample graph (engine auto: dense),
+    saved, loaded back and held bitwise against a direct call."""
+    import contextlib
+    import io
+    import os
+
+    from approximated_personalized_pagerank_tpu_torch import (
+        grank_baskets,
+        load_baskets,
+        load_csv_graph,
+        sample_graph_path,
+    )
+    from approximated_personalized_pagerank_tpu_torch.cli import main as cli_main
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cli_baskets.npz")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc, cli_s = timed(lambda: cli_main(["--save", path]))
+    check(rc == 0, f"the CLI exited {rc}")
+    loaded, keys = load_baskets(path)
+    direct = grank_baskets(load_csv_graph(sample_graph_path()), K, L, ITERS, DAMPING, TOL)
+    check(same_bits(loaded, direct), "the CLI's saved baskets differ from a direct call")
+    lines = printed.getvalue().splitlines()
+    emit_dense("e: the CLI on the sample graph", smi, {
+        "cli_s": cli_s, "rows": loaded.ids.shape[0], "keys": len(keys),
+        "bitwise_equal_to_direct_call": True,
+        "printed": [ln for ln in lines if "run-time" in ln or "jaccard average" in ln]})
+
+
+def phase_dense(smi: str) -> dict:
+    """Phase 6: the dense engine (6a-6e), and its wall time.  Returns the
+    launches of each merge entry on its paths."""
+    from approximated_personalized_pagerank_tpu_torch import load_eat_graph
+
+    t0 = time.perf_counter()
+    eat = load_eat_graph()
+    grank_launches = dense_grank_eat(eat, smi)
+    engines_agree(eat, smi)
+    mc_launches = dense_mc_eat(eat, smi)
+    dense_cutoff(smi)
+    dense_cli(smi)
+    emit_dense("all", smi, {"wall_s": time.perf_counter() - t0})
+    return {k: {key: grank_launches[k].get(key, 0) + mc_launches[k].get(key, 0)
+                for key in set(grank_launches[k]) | set(mc_launches[k])}
+            for k in grank_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -747,8 +1007,10 @@ def main() -> int:
     eat_launches = phase_eat()
     scale_launches, big = phase_scale()
     mc_launches, mc_errs = phase_mc()
-    # the main paths' four runs
-    runs = [eat_launches, scale_launches, mc_launches, phase_walk_scale(big)]
+    walk_launches = phase_walk_scale(big)
+    del big
+    # the main paths' runs
+    runs = [eat_launches, scale_launches, mc_launches, walk_launches, phase_dense(smi)]
     launches = {k: sum(sum(r[k].values()) for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")

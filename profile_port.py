@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port spends its time on the card.
 
-    python3 profile_port.py [grank|mc]
+    python3 profile_port.py [grank|mc|dense]
 
-Runs the port's smoke cells under ``torch.profiler``.  ``grank`` (and the
-default, which runs both modes): GRank on Eat (K=50, L=100, 30 half-sweeps,
-tol 1e-4) and two half-sweeps on ``powerlaw_graph(1_000_000, 10_000_000,
-seed=7, locality=0.8)``.  ``mc``: MCCompletePathV2 on Eat (K=50, L=200,
-R=1000, seed 1, as chip_smoke.py phase 4) and its walks alone
-(``walk_baskets``, the trace top-L included).  Every cell runs twice
+Runs the port's smoke cells under ``torch.profiler`` (no argument: all
+three modes).  ``grank``: sparse GRank on Eat (K=50, L=100, 30
+half-sweeps, tol 1e-4) and two half-sweeps on
+``powerlaw_graph(1_000_000, 10_000_000, seed=7, locality=0.8)``.  ``mc``:
+sparse MCCompletePathV2 on Eat (K=50, L=200, R=1000, seed 1, as
+chip_smoke.py phase 4) and its walks alone (``walk_baskets``, the trace
+top-L included).  ``dense``: the dense engine on Eat (chip_smoke.py phase
+6): GRank as above, and MCCompletePathV2 through ``engine="auto"``.
+Every cell runs twice
 unprofiled (a warm-up, then the timed call) and once profiled.  For each it
 prints one JSON line: host wall time, the summed time of all device
 activities (kernels and copies), the device's idle share of the host wall
@@ -104,31 +107,42 @@ def main() -> int:
     from approximated_personalized_pagerank_tpu_torch.ops.walk import _trace_chunks
     from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
-    modes = sys.argv[1:] or ["grank", "mc"]
-    if set(modes) - {"grank", "mc"}:
+    modes = sys.argv[1:] or ["grank", "mc", "dense"]
+    if set(modes) - {"grank", "mc", "dense"}:
         print(f"profile_port: unknown mode in {modes}", file=sys.stderr)
         return 2
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     eat = load_eat_graph()
     if "grank" in modes:
         # Eat runs all 30 half-sweeps at this tolerance (chip_smoke.py phase 2)
-        profiled("eat_grank", lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4),
+        profiled("eat_grank",
+                 lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4, engine="sparse"),
                  30, "half_sweep")
         big = powerlaw_graph(1_000_000, 10_000_000, seed=7, locality=0.8)
         profiled("powerlaw_1m_2_sweeps",
-                 lambda: grank_baskets(big, K, L, 2, DAMPING, -1.0), 2, "half_sweep")
+                 lambda: grank_baskets(big, K, L, 2, DAMPING, -1.0, engine="sparse"),
+                 2, "half_sweep")
     if "mc" in modes:
         chunk = _trace_chunks(eat.num_nodes, MC_R, DAMPING, None, None, 32)[0]
         chunks = -(-eat.num_nodes // chunk)
         mc_wall = profiled(
             "eat_mc",
-            lambda: mccompletepathv2_baskets(eat, MC_K, MC_L, MC_R, DAMPING, seed=1),
+            lambda: mccompletepathv2_baskets(eat, MC_K, MC_L, MC_R, DAMPING, seed=1,
+                                             engine="sparse"),
             chunks, "walk_chunk")
         walk_wall = profiled(
             "eat_mc_walks", lambda: walk_baskets(eat, MC_L, MC_R, DAMPING, seed=1),
             chunks, "walk_chunk")
         print(json.dumps({"cell": "eat_mc", "walk_share_of_wall": walk_wall / mc_wall}),
               flush=True)
+    if "dense" in modes:
+        profiled("eat_dense_grank",
+                 lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4, engine="dense"),
+                 30, "half_sweep")
+        chunk = _trace_chunks(eat.num_nodes, MC_R, DAMPING, None, None, 32)[0]
+        profiled("eat_dense_mc",  # auto: dense up to 32,768 nodes
+                 lambda: mccompletepathv2_baskets(eat, MC_K, MC_L, MC_R, DAMPING, seed=1),
+                 -(-eat.num_nodes // chunk), "walk_chunk")
     return 0
 
 

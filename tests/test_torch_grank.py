@@ -48,7 +48,7 @@ def test_whole_run_matches_jax(algo_t, algo_j):
     j = pj.grank_baskets(gj, K, L, 20, 0.85, 1e-6, merge_algo=algo_j,
                          engine="sparse", host_loop=True)
     t, info = pt.grank_baskets(gt, K, L, 20, 0.85, 1e-6, merge_algo=algo_t,
-                               device="cpu", return_info=True)
+                               engine="sparse", device="cpu", return_info=True)
     assert t.ids.shape == (n, K) and t.ids.dtype == torch.int32
     assert 1 < info["iterations_ran"] <= 20
     topl_max_error(np.asarray(j.ids), np.asarray(j.scores), t.ids, t.scores, 1e-5)
@@ -67,7 +67,8 @@ def test_untruncated_same_as_pagerank(rng, algo):
     n = 60
     src = np.concatenate([np.zeros(80, np.int64), rng.integers(1, n, 200)])
     g = pt.Graph.from_edges(src, rng.integers(0, n, 280), num_nodes=n)
-    full = pt.grank_baskets(g, n, n, 100, 0.85, -1.0, merge_algo=algo, device="cpu")
+    full = pt.grank_baskets(g, n, n, 100, 0.85, -1.0, merge_algo=algo, engine="sparse",
+                            device="cpu")
     exact = _exact_rows(g, np.arange(12))
     for r in range(12):
         vec = np.zeros(n)
@@ -79,26 +80,30 @@ def test_untruncated_same_as_pagerank(rng, algo):
 def test_hand_computed_cases():
     # 5-cycle closed form: score(0) = 0.15 / (1 - 0.85**5)
     g = pt.Graph.from_dict({i: [(i + 1) % 5] for i in range(5)})
-    res = pt.grank(g, 3, 5, 400, 0.85, 1e-9, device="cpu")
+    res = pt.grank(g, 3, 5, 400, 0.85, 1e-9, engine="sparse", device="cpu")
     assert res[0][0] == pytest.approx(0.15 / (1 - 0.85**5), abs=1e-6)
     # star: leaves are dangling, baskets exactly {leaf: 0.15}
     g = pt.Graph.from_dict({0: [1, 2, 3, 4], 1: [], 2: [], 3: [], 4: []})
-    res = pt.grank(g, 5, 5, 50, 0.85, 1e-6, merge_algo="kernel", device="cpu")
+    res = pt.grank(g, 5, 5, 50, 0.85, 1e-6, merge_algo="kernel", engine="sparse",
+                   device="cpu")
     assert res[0][0] == pytest.approx(0.15, abs=1e-6)
     for leaf in range(1, 5):
         assert res[0][leaf] == pytest.approx(0.85 / 4 * 0.15, abs=1e-6)
         assert res[leaf] == pytest.approx({leaf: 0.15})
-    assert pt.grank(pt.Graph.from_dict({}), 3, 5, 10, 0.85, 1e-4, device="cpu") == {}
+    assert pt.grank(pt.Graph.from_dict({}), 3, 5, 10, 0.85, 1e-4, engine="sparse",
+                    device="cpu") == {}
 
 
 def test_tolerance_semantics():
     g = pt.Graph.from_dict({i: [(i + 1) % 6] for i in range(6)})
-    _, info = pt.grank_baskets(g, 6, 6, 40, 0.85, -1.0, device="cpu", return_info=True)
+    _, info = pt.grank_baskets(g, 6, 6, 40, 0.85, -1.0, engine="sparse", device="cpu",
+                               return_info=True)
     assert info["iterations_ran"] == 40  # negative tolerance never stops
     # an L1 diff never exceeds 2, so a tolerance of 10 stops the loop as
     # soon as each partition has swept once (both maxDiff slots start at
     # the tolerance)
-    _, info = pt.grank_baskets(g, 6, 6, 40, 0.85, 10.0, device="cpu", return_info=True)
+    _, info = pt.grank_baskets(g, 6, 6, 40, 0.85, 10.0, engine="sparse", device="cpu",
+                               return_info=True)
     assert info["iterations_ran"] == 2
 
 
@@ -111,8 +116,14 @@ def test_validation_and_device_contract():
                       ((3, 3, 42, 1.5), r"damping must be \[0,1\]")]:
         with pytest.raises(ValueError, match=msg):
             pt.grank(g, *args, 1e-4, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense engine"):
-        pt.grank_baskets(g, 1, 2, 5, 0.85, 1e-4, engine="dense", device="cpu")
+    # the dense engine runs (a tiny graph: auto takes it too), and equals sparse
+    dense = pt.grank_baskets(g, 1, 2, 5, 0.85, 1e-4, engine="dense", device="cpu")
+    auto = pt.grank_baskets(g, 1, 2, 5, 0.85, 1e-4, device="cpu")
+    sparse = pt.grank_baskets(g, 1, 2, 5, 0.85, 1e-4, engine="sparse", device="cpu")
+    assert torch.equal(dense.ids, auto.ids) and torch.equal(dense.ids, sparse.ids)
+    assert torch.allclose(dense.scores, sparse.scores, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="unknown engine 'mxu'"):
+        pt.grank_baskets(g, 1, 2, 5, 0.85, 1e-4, engine="mxu", device="cpu")
     if not torch.cuda.is_available():
         # device=None means CUDA: without a card it raises, never runs on the CPU
         with pytest.raises(RuntimeError, match="CUDA is not available"):

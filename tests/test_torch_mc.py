@@ -57,7 +57,7 @@ def test_untruncated_run_matches_jax(algo_t, algo_j, choice):
     j, ji = pj.mccompletepathv2_baskets(gj, n, n, 200, DAMPING, engine="sparse",
                                         merge_algo=algo_j, **kw)
     t, ti = pt.mccompletepathv2_baskets(gt, n, n, 200, DAMPING, merge_algo=algo_t,
-                                        device="cpu", **kw)
+                                        engine="sparse", device="cpu", **kw)
     assert ti == ji
     assert t.ids.shape == (n, n) and t.ids.dtype == torch.int32
     dj, dt = _dicts(j), _dicts(t)
@@ -89,33 +89,39 @@ def test_validation_messages():
     with pytest.raises(ValueError, match="unknown successor_choice 'rotating'"):
         pt.mccompletepathv2_baskets(g, 3, 3, 42, 0.5, successor_choice="rotating",
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        run(3, 3, 42, 0.5, engine="dense")
+    # the dense engine runs, and equals sparse here (L >= |V|: nothing is cut)
+    dense = run(3, 3, 42, 0.5, engine="dense", seed=SEED)
+    sparse = run(3, 3, 42, 0.5, engine="sparse", seed=SEED)
+    assert dense.keys() == sparse.keys()
+    for v in dense:
+        assert dense[v] == pytest.approx(sparse[v], abs=1e-6)
     with pytest.raises(ValueError, match="unknown engine"):
         run(3, 3, 42, 0.5, engine="ring")
 
 
 def test_empty_graph():
     g = pt.Graph.from_dict({})
-    assert pt.mccompletepathv2(g, 3, 5, 10, DAMPING, device="cpu") == {}
-    b, info = pt.mccompletepathv2_baskets(g, 3, 5, 10, DAMPING, device="cpu",
-                                          return_info=True)
+    assert pt.mccompletepathv2(g, 3, 5, 10, DAMPING, engine="sparse", device="cpu") == {}
+    b, info = pt.mccompletepathv2_baskets(g, 3, 5, 10, DAMPING, engine="sparse",
+                                          device="cpu", return_info=True)
     assert b.ids.shape == (0, 3) and info == {"walk_steps": 0}
 
 
 def test_edgeless_nodes_basket_is_one():
     # mccompletepathv2Test.cc:38-50: nodes with no edges end with {self: 1.0}
     g = pt.Graph.from_dict({i: [] for i in range(4)})
-    res = pt.mccompletepathv2(g, 3, 5, 100, DAMPING, seed=SEED, device="cpu")
+    res = pt.mccompletepathv2(g, 3, 5, 100, DAMPING, seed=SEED, engine="sparse",
+                              device="cpu")
     for i in range(4):
         assert res[i] == pytest.approx({i: 1.0})
 
 
 def test_deterministic_given_seed():
     g = pt.Graph.from_dict({0: [1, 2], 1: [2], 2: [0], 3: [0]})
-    a = pt.mccompletepathv2(g, 3, 6, 500, DAMPING, seed=77, device="cpu")
-    b = pt.mccompletepathv2(g, 3, 6, 500, DAMPING, seed=77, device="cpu")
-    c = pt.mccompletepathv2(g, 3, 6, 500, DAMPING, seed=78, device="cpu")
+    kw = dict(engine="sparse", device="cpu")
+    a = pt.mccompletepathv2(g, 3, 6, 500, DAMPING, seed=77, **kw)
+    b = pt.mccompletepathv2(g, 3, 6, 500, DAMPING, seed=77, **kw)
+    c = pt.mccompletepathv2(g, 3, 6, 500, DAMPING, seed=78, **kw)
     assert a == b and a != c
 
 
@@ -127,7 +133,7 @@ def test_recall_band_vs_exact(rng):
     dst = rng.integers(0, n, size=600)
     g = pt.Graph.from_edges(src, dst, num_nodes=n)
     baskets = pt.mccompletepathv2_baskets(g, 10, 60, 1000, DAMPING, seed=SEED,
-                                          device="cpu")
+                                          engine="sparse", device="cpu")
     stats = pt.benchmark_algorithm(baskets, g, 40, True, seed=0, device="cpu")
     assert stats["jaccard average"] >= 0.75
     assert stats["kendall average"] >= 0.6
@@ -136,7 +142,8 @@ def test_recall_band_vs_exact(rng):
 def test_cycle_scores_decrease_with_distance():
     n = 5
     g = pt.Graph.from_dict({i: [(i + 1) % n] for i in range(n)})
-    res = pt.mccompletepathv2(g, n, n, 2000, DAMPING, seed=SEED, device="cpu")
+    res = pt.mccompletepathv2(g, n, n, 2000, DAMPING, seed=SEED, engine="sparse",
+                              device="cpu")
     for src in range(n):
         vals = [res[src].get((src + d) % n, 0.0) for d in range(n)]
         assert all(vals[i] >= vals[i + 1] for i in range(n - 1))
@@ -165,6 +172,6 @@ def test_card_run_matches_cpu_run():
     src, dst, n = _graph(2, n=300)
     g = pt.Graph.from_edges(src, dst, num_nodes=n)
     a = pt.mccompletepathv2_baskets(g, 10, 40, 500, DAMPING, seed=1, device="cpu",
-                                    merge_algo="kernel")
-    b = pt.mccompletepathv2_baskets(g, 10, 40, 500, DAMPING, seed=1)
+                                    merge_algo="kernel", engine="sparse")
+    b = pt.mccompletepathv2_baskets(g, 10, 40, 500, DAMPING, seed=1, engine="sparse")
     topl_max_error(a.ids, a.scores, b.ids.cpu(), b.scores.cpu(), 1e-6)
