@@ -4,8 +4,10 @@ The port of ``approximated_personalized_pagerank_tpu`` (JAX) to one NVIDIA
 H100: GRank and MCCompletePathV2 (threefry walks bit for bit the JAX
 package's) on the sparse and dense engines, the exact PPR oracle, the
 quality harness, checkpoints and the CLI (``ppr-torch``), with the fused
-basket merge as a hand-written CUDA kernel (ops/merge_kernel.py).  Entry
-points run on the card unless the caller passes ``device="cpu"``.
+basket merge as a hand-written CUDA kernel (ops/merge_kernel.py); the
+sharded runs (``*_multi``, ``mesh=``) split the nodes over a mesh of
+shards (parallel/).  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
 import os as _os
@@ -39,12 +41,18 @@ def load_eat_graph() -> Graph:
 
 from .models.benchmark import benchmark_algorithm, benchmark_sampled, sample_result
 from .models.common import baskets_to_dict
-from .models.grank import grank, grank_baskets
-from .models.mccompletepathv2 import mccompletepathv2, mccompletepathv2_baskets
+from .models.grank import grank, grank_baskets, grank_multi, grank_multi_baskets
+from .models.mccompletepathv2 import (
+    mccompletepathv2,
+    mccompletepathv2_baskets,
+    mccompletepathv2_multi,
+    mccompletepathv2_multi_baskets,
+)
 from .models.ppr_single_source import ppr_single_source, ppr_single_source_batch
 from .ops.basket import Baskets
 from .ops.merge_kernel import fused_merge_topl
 from .ops.walk import walk_baskets
+from .parallel.mesh import Mesh, init_distributed, make_mesh
 from .utils.checkpoint import load_baskets, save_baskets
 from .utils.order import execution_order
 
@@ -56,8 +64,15 @@ __all__ = [
     "load_eat_graph",
     "grank",
     "grank_baskets",
+    "grank_multi",
+    "grank_multi_baskets",
     "mccompletepathv2",
     "mccompletepathv2_baskets",
+    "mccompletepathv2_multi",
+    "mccompletepathv2_multi_baskets",
+    "Mesh",
+    "make_mesh",
+    "init_distributed",
     "walk_baskets",
     "ppr_single_source",
     "ppr_single_source_batch",

@@ -136,16 +136,20 @@ def benchmark_sampled(
     oracle_tolerance: float = 1e-4,
     batch_size: int | None = None,
     device=None,
+    mesh=None,
 ) -> list:
     """Stats for several sampled results sharing one exact-oracle pass.
 
     All samples must hold the same source list (same sampling arguments).
     Returns one stats dict per sample.  The oracle runs on ``device``
-    (``None`` means ``"cuda"``).
+    (``None`` means ``"cuda"``), or split across ``mesh``'s shards, each
+    taking a batch of the auto size.
     """
     if batch_size is None:
-        # bound the [N, B] oracle state at ~128 MB per buffer
+        # bound the [N, B] oracle state at ~128 MB per buffer (a shard)
         batch_size = int(max(4, min(32, (32 << 20) // max(graph.num_nodes, 1))))
+        if mesh is not None:
+            batch_size *= mesh.n_shards
     if not samples:
         return []
     sel_sources = samples[0].sources
@@ -166,7 +170,7 @@ def benchmark_sampled(
         nb = b_src.shape[0]
         dense = ppr_single_source_batch(
             graph, b_src, oracle_iterations, oracle_damping, oracle_tolerance,
-            device=device,
+            device=device, mesh=mesh,
         )  # [nb, N]
         dev = dense.device
         rows = torch.arange(nb, device=dev)
@@ -249,6 +253,7 @@ def benchmark_algorithm(
     oracle_tolerance: float = 1e-4,
     batch_size: int | None = None,
     device=None,
+    mesh=None,
 ) -> Dict[str, float]:
     """Quality stats of an approximate all-sources PPR result.
 
@@ -256,7 +261,8 @@ def benchmark_algorithm(
     reference-shaped dict-of-dicts.  ``seed`` makes sampling reproducible
     (the reference uses an entropy-seeded shuffle,
     benchmarkAlgorithm.h:60-61).  To evaluate several results against one
-    oracle pass, see :func:`sample_result` + :func:`benchmark_sampled`.
+    oracle pass, see :func:`sample_result` + :func:`benchmark_sampled`;
+    ``mesh`` splits each oracle batch across its shards.
     """
     sample = sample_result(result, graph, test_nodes, strict, seed=seed)
     return benchmark_sampled(
@@ -267,4 +273,5 @@ def benchmark_algorithm(
         oracle_tolerance=oracle_tolerance,
         batch_size=batch_size,
         device=device,
+        mesh=mesh,
     )[0]

@@ -16,7 +16,8 @@ Reference: ``ppr::grank`` (include/grank.h:42-150).  Semantics preserved:
 Baskets are ``[N, L]`` id/score tensors; each half-sweep merges the active
 partition's degree buckets (ops/merge.py).  The loop runs on the host and
 reads the half-sweep's max L1 diff once per half-sweep.  Graphs up to
-16,384 nodes take the dense engine by default (ops/dense.py).
+16,384 nodes take the dense engine by default (ops/dense.py); with a
+``mesh`` the run is the ring-sharded one (parallel/ring.py).
 """
 
 from __future__ import annotations
@@ -36,8 +37,15 @@ from ..ops.merge import (
     net_max_width,
     resolve_merge_algo,
 )
+from ..parallel.mesh import mesh_for
+from ..parallel.ring import ring_grank_baskets
 from ..utils.device import resolve_device
-from ..utils.validation import check_basket_params, check_damping, check_iterations
+from ..utils.validation import (
+    check_basket_params,
+    check_damping,
+    check_iterations,
+    check_shards,
+)
 from .common import baskets_to_dict
 
 
@@ -65,11 +73,15 @@ def grank_baskets(
     exact_trunc: bool = False,
     return_info: bool = False,
     device=None,
+    mesh=None,
 ):
     """GRank returning ``[N, K]`` basket tensors over internal node ids.
 
     ``device`` is where the run happens: ``None`` means ``"cuda"``, which
-    raises when no card is present; pass ``"cpu"`` for the CPU.
+    raises when no card is present; pass ``"cpu"`` for the CPU.  With a
+    ``mesh`` (parallel/mesh.py) the run is sharded over its shards
+    (``ring_grank_baskets``; ``device`` is the mesh's) unless ``engine`` is
+    ``"dense"``: ``"auto"`` is then sparse.
 
     ``engine``: ``"sparse"`` is the merge pipeline over degree buckets;
     ``"dense"`` runs each half-sweep as one matrix product over an
@@ -89,11 +101,11 @@ def grank_baskets(
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     algo = resolve_merge_algo(merge_algo, dev)
 
     n = graph.num_nodes
-    dense = use_dense_engine(n, engine)
+    dense = use_dense_engine(n, engine, mesh=mesh)
     if n == 0:
         out = empty_baskets(0, K, dev)
         return (out, {"iterations_ran": 0}) if return_info else out
@@ -102,6 +114,11 @@ def grank_baskets(
             graph, K, L, iterations, damping, tolerance,
             matmul_dtype=matmul_dtype, exact_trunc=exact_trunc,
             return_info=return_info, device=dev,
+        )
+    if mesh is not None:
+        return ring_grank_baskets(
+            graph, K, L, iterations, damping, tolerance, mesh=mesh,
+            elem_budget=elem_budget, merge_algo=algo, return_info=return_info,
         )
 
     # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a power
@@ -173,5 +190,50 @@ def grank(
             merge_algo=merge_algo, engine=engine, matmul_dtype=matmul_dtype,
             exact_trunc=exact_trunc, device=device,
         ),
+        graph,
+    )
+
+
+def grank_multi_baskets(
+    graph: Graph,
+    K: int,
+    L: int,
+    iterations: int,
+    damping: float,
+    tolerance: float,
+    n_shards: int,
+    elem_budget: int = DEFAULT_ELEM_BUDGET,
+    merge_algo: str | None = None,
+    devices=None,
+    device=None,
+):
+    """Sharded GRank over ``n_shards`` shards, the successor of
+    ``grankMulti`` (header-only/grankMulti.h:289-296): node ranges owned
+    per shard, successor baskets passed around a ring, convergence by a
+    global max.  The shards are ``devices`` if given, else the first
+    ``n_shards`` cards, or ``n_shards`` shards on the CPU with
+    ``device="cpu"`` (parallel/mesh.mesh_for)."""
+    check_shards(n_shards)
+    return grank_baskets(
+        graph, K, L, iterations, damping, tolerance, elem_budget,
+        merge_algo=merge_algo, mesh=mesh_for(n_shards, devices, device),
+    )
+
+
+def grank_multi(
+    graph: Graph,
+    K: int,
+    L: int,
+    iterations: int,
+    damping: float,
+    tolerance: float,
+    n_shards: int,
+    device=None,
+) -> Dict[Hashable, Dict[Hashable, float]]:
+    """grankMulti-shaped API (graph, K, L, iterations, damping, tolerance,
+    parallelism degree) returning the reference's map-of-maps."""
+    return baskets_to_dict(
+        grank_multi_baskets(graph, K, L, iterations, damping, tolerance, n_shards,
+                            device=device),
         graph,
     )

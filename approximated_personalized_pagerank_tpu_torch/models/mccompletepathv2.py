@@ -42,12 +42,15 @@ from ..ops.merge import (
     resolve_merge_algo,
 )
 from ..ops.walk import walk_baskets
+from ..parallel.mesh import mesh_for
+from ..parallel.ring import ring_mc_combine
 from ..utils.device import resolve_device
 from ..utils.validation import (
     check_basket_params,
     check_combine_passes,
     check_damping,
     check_iterations,
+    check_shards,
     check_successor_choice,
 )
 from .common import baskets_to_dict
@@ -68,6 +71,7 @@ def mccompletepathv2_baskets(
     return_info: bool = False,
     successor_choice: str = "uniform",
     device=None,
+    mesh=None,
 ):
     """MCCompletePathV2 returning ``[N, K]`` baskets over internal ids.
 
@@ -86,35 +90,52 @@ def mccompletepathv2_baskets(
     with matrix products (ops/dense.py; ``matmul_dtype`` is their input
     dtype, bfloat16 on the card by default), ``"auto"`` picks dense up to
     ``PPR_MC_DENSE_MAX_NODES`` (32,768) nodes, Eat included, as the JAX
-    package does.  The sharded ``mesh`` runs are not ported yet
-    (ROADMAP.md, queue A item 9).
+    package does.
+
+    ``mesh`` (parallel/mesh.py, one process) shards the run whatever
+    ``engine`` says: the walks split each source chunk across the shards
+    (bitwise the unsharded walks at the same chunk size), the combine is
+    the ring's exact merge (``ring_mc_combine``); ``device`` is the mesh's.
     """
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
     check_combine_passes(combine_passes)
     check_successor_choice(successor_choice)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     algo = resolve_merge_algo(merge_algo, dev)
+    stratified = successor_choice == "stratified"
 
     n = graph.num_nodes
-    dense = use_dense_engine(n, engine, max_nodes=MC_DENSE_MAX_NODES)
     if n == 0:
         out = empty_baskets(0, K, dev)
         return (out, {"walk_steps": 0}) if return_info else out
+    if mesh is not None:
+        basket = walk_baskets(
+            graph, L, iterations, damping, seed=seed, return_info=return_info,
+            stratified=stratified, merge_algo=algo, mesh=mesh,
+        )
+        info = None
+        if return_info:
+            basket, info = basket
+        out = ring_mc_combine(
+            graph, basket, K, L, damping, combine_passes, mesh=mesh,
+            elem_budget=elem_budget, merge_algo=algo,
+        )
+        return (out, info) if return_info else out
+
+    dense = use_dense_engine(n, engine, max_nodes=MC_DENSE_MAX_NODES)
     if dense:
         return dense_mc_run(
             graph, K, L, iterations, damping, seed=seed,
             combine_passes=combine_passes, matmul_dtype=matmul_dtype,
-            return_info=return_info,
-            stratified=successor_choice == "stratified", merge_algo=algo,
+            return_info=return_info, stratified=stratified, merge_algo=algo,
             device=dev,
         )
 
     basket = walk_baskets(
         graph, L, iterations, damping, seed=seed, return_info=return_info,
-        stratified=successor_choice == "stratified", merge_algo=algo,
-        device=dev,
+        stratified=stratified, merge_algo=algo, device=dev,
     )
     info = None
     if return_info:
@@ -135,6 +156,55 @@ def mccompletepathv2_baskets(
     # (mccompletepathv2.h:213-214: factor 1, no successor contributions)
     out = keep_top_chunked(basket.ids, basket.scores, K)
     return (out, info) if return_info else out
+
+
+def mccompletepathv2_multi_baskets(
+    graph: Graph,
+    K: int,
+    L: int,
+    iterations: int,
+    damping: float,
+    n_shards: int,
+    seed: int | None = None,
+    combine_passes: int = 2,
+    elem_budget: int = DEFAULT_ELEM_BUDGET,
+    merge_algo: str | None = None,
+    devices=None,
+    device=None,
+):
+    """Sharded MCCompletePathV2 over ``n_shards`` shards (chosen as in
+    ``grank_multi_baskets``): source-sharded walks and the exact ring
+    combine.  The reference parallelizes only GRank
+    (header-only/grankMulti.h); this extends its node-range data
+    parallelism to the Monte-Carlo algorithm."""
+    check_shards(n_shards)
+    return mccompletepathv2_baskets(
+        graph, K, L, iterations, damping, seed=seed,
+        combine_passes=combine_passes, elem_budget=elem_budget,
+        merge_algo=merge_algo, mesh=mesh_for(n_shards, devices, device),
+    )
+
+
+def mccompletepathv2_multi(
+    graph: Graph,
+    K: int,
+    L: int,
+    iterations: int,
+    damping: float,
+    n_shards: int,
+    seed: int | None = None,
+    combine_passes: int = 2,
+    device=None,
+) -> Dict[Hashable, Dict[Hashable, float]]:
+    """grankMulti-shaped sharded MC API returning the reference's
+    map-of-maps."""
+    return baskets_to_dict(
+        mccompletepathv2_multi_baskets(
+            graph, K, L, iterations, damping, n_shards, seed=seed,
+            combine_passes=combine_passes, device=device,
+        ),
+        graph,
+    )
 
 
 def mccompletepathv2(

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..graph import Graph
+from ..parallel.mesh import put_sharded
 from ..utils.device import resolve_device
 from ..utils.validation import check_damping, check_iterations
 
@@ -88,6 +89,22 @@ def _power_iterate(
     return x.T.contiguous()
 
 
+def _oracle_on(graph, sources: torch.Tensor, damping, tolerance, iterations,
+               edge_elem_budget) -> torch.Tensor:
+    """The oracle's ``[B, N]`` vectors for ``sources``, on their device."""
+    dev = sources.device
+    deg = torch.as_tensor(graph.out_degree, dtype=torch.float32).to(dev)
+    coef = torch.where(
+        deg > 0,
+        torch.tensor(damping, dtype=torch.float32, device=dev) / deg.clamp(min=1.0),
+        torch.zeros_like(deg),
+    )
+    return _power_iterate(
+        _pred_buckets(graph, dev), coef, sources, damping, tolerance, iterations,
+        edge_elem_budget,
+    )
+
+
 def ppr_single_source_batch(
     graph: Graph,
     sources: Sequence[int] | np.ndarray,
@@ -96,24 +113,33 @@ def ppr_single_source_batch(
     tolerance: float,
     edge_elem_budget: int = DEFAULT_EDGE_ELEM_BUDGET,
     device=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Dense exact PPR vectors ``float32[B, N]`` for internal-id sources,
-    on ``device`` (``None`` means ``"cuda"``)."""
+    on ``device`` (``None`` means ``"cuda"``).
+
+    With ``mesh`` (parallel/mesh.py, one process) the source batch is
+    padded to a multiple of the shard count and split across the shards,
+    the CSR replicated on their devices; each source's vector is the
+    unsharded one (sources never interact).  The result lives on the first
+    shard's device.
+    """
     check_iterations(iterations)
     check_damping(damping)
-    dev = resolve_device(device)
-    src = torch.as_tensor(np.asarray(sources, dtype=np.int64)).to(dev)
-    b = int(src.shape[0])
-    deg = torch.as_tensor(graph.out_degree, dtype=torch.float32).to(dev)
-    coef = torch.where(
-        deg > 0,
-        torch.tensor(damping, dtype=torch.float32, device=dev) / deg.clamp(min=1.0),
-        torch.zeros_like(deg),
-    )
-    out = _power_iterate(
-        _pred_buckets(graph, dev), coef, src, damping, tolerance, iterations,
-        edge_elem_budget,
-    )
+    src_np = np.asarray(sources, dtype=np.int64)
+    b = int(src_np.shape[0])
+    if mesh is None:
+        src = torch.as_tensor(src_np).to(resolve_device(device))
+        out = _oracle_on(graph, src, damping, tolerance, iterations, edge_elem_budget)
+    else:
+        if mesh.group is not None:
+            raise ValueError("the sharded oracle runs in one process")
+        padded = np.pad(src_np, (0, (-b) % mesh.n_shards))
+        out = torch.cat([
+            _oracle_on(graph, part, damping, tolerance, iterations,
+                       edge_elem_budget).to(mesh.devices[0])
+            for part in put_sharded(padded, mesh)
+        ], dim=0)[:b]
     # Mass conservation: every true PPR vector sums to <= 1 (dangling mass
     # is only lost, pprSingleSource.h:57-66).  A row summing to more means a
     # broken push; fail loudly rather than score against a wrong oracle.

@@ -69,14 +69,15 @@ TRUNC_ELEMS = 1 << 26
 
 
 def use_dense_engine(
-    num_nodes: int, engine: str, max_nodes: int | None = None
+    num_nodes: int, engine: str, max_nodes: int | None = None, *, mesh=None
 ) -> bool:
     """Resolve ``engine`` ("auto" | "sparse" | "dense"): "auto" is dense
     for ``0 < num_nodes <= max_nodes`` (default ``DENSE_MAX_NODES``;
-    MCCompletePathV2 passes ``MC_DENSE_MAX_NODES``)."""
+    MCCompletePathV2 passes ``MC_DENSE_MAX_NODES``) unless a ``mesh`` is
+    given: the sharded runs are sparse."""
     if engine == "dense":
         return True
-    if engine == "sparse":
+    if engine == "sparse" or mesh is not None:
         return False
     if engine != "auto":
         raise ValueError(f"unknown engine {engine!r}")

@@ -144,11 +144,12 @@ def _cohort_hop(
     return nxt, stepping, cur, rem, alive
 
 
-def _macro_draws(key, step: int, shape, device) -> torch.Tensor:
+def _macro_draws(key, step: int, shape, device, rows=None) -> torch.Tensor:
     """``[2, unroll, C, S]`` uniforms of one macro step: successor choice
-    and continuation, from ``split(fold_in(key, step))``."""
+    and continuation, from ``split(fold_in(key, step))``; ``rows=(offset,
+    total)``: rows ``offset..`` of a chunk of ``total`` sources."""
     k_choice, k_cont = split(fold_in(key, step))
-    return uniform_many([k_choice, k_cont], shape, device)
+    return uniform_many([k_choice, k_cont], shape, device, rows=rows)
 
 
 def walk_trace_chunk(
@@ -162,6 +163,7 @@ def walk_trace_chunk(
     macro_steps: int,
     unroll: int,
     stratified: bool = False,
+    rows: Tuple[int, int] | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Visit trace ``int32[C, macro_steps*unroll*slots]`` for a source chunk,
     plus ``abandoned int64[C]``: walks cut off by the step horizon (still
@@ -169,6 +171,11 @@ def walk_trace_chunk(
 
     Hop ``h`` of macro step ``t`` records column block ``t*unroll + h``:
     the node each slot stepped to, or SENTINEL for an idle slot.
+
+    ``rows=(offset, total)``: ``sources`` are rows ``offset..`` of a chunk
+    of ``total`` sources under ``key`` (a shard of it), and draw that
+    chunk's numbers at their rows, so each row walks as in the whole chunk
+    (rows never interact).
     """
     c = sources.shape[0]
     dev = sources.device
@@ -181,7 +188,7 @@ def walk_trace_chunk(
     for step in range(macro_steps):
         if not bool(alive.any()):
             break
-        u_all, u2_all = _macro_draws(key, step, (unroll, c, slots), dev)
+        u_all, u2_all = _macro_draws(key, step, (unroll, c, slots), dev, rows=rows)
         col = step * unroll * slots
         for hop in range(unroll):
             nxt, stepping, cur, rem, alive = _cohort_hop(
@@ -391,6 +398,28 @@ def _trace_chunks(
     return source_chunk, row_chunk, slots, total, macro_steps, width
 
 
+def _sharded_trace_chunks(
+    n: int,
+    iterations: int,
+    damping: float,
+    source_chunk: int | None,
+    slots: int | None,
+    unroll: int,
+    n_shards: int,
+):
+    """The source-sharded walks' plan, the JAX package's mesh branch
+    (its ops/walk.py:510-522): :func:`_trace_plan`, the chunk clamped to
+    the row count, *then* rounded up to a multiple of ``n_shards``, with no
+    ``MAX_MAP_CHUNKS`` clamp.  So its chunks, and with them the PRNG
+    streams, can differ from :func:`_trace_chunks`'."""
+    source_chunk, slots, total, macro_steps, width = _trace_plan(
+        iterations, damping, source_chunk, slots, unroll, num_nodes=n
+    )
+    source_chunk = min(source_chunk, max(n, 1))
+    source_chunk = -(-source_chunk // n_shards) * n_shards
+    return source_chunk, slots, total, macro_steps, width
+
+
 def _root_key(seed: int | None):
     if seed is None:
         seed = int(np.random.SeedSequence().entropy % (2**31))
@@ -419,6 +448,7 @@ def walk_trace_basket_chunks(
     stratified: bool = False,
     merge_algo: str | None = None,
     device=None,
+    mesh=None,
 ) -> Iterator[Tuple[int, Baskets, torch.Tensor, torch.Tensor]]:
     """Yield ``(start_row, Baskets, visits, abandoned)`` per source chunk:
     normalized top-L walk baskets of the chunk's sources from the trace
@@ -426,8 +456,20 @@ def walk_trace_basket_chunks(
     horizon (0-d tensors on the device; pad rows excluded).
 
     ``merge_algo`` is the trace top-L's pipeline (the JAX package always
-    takes its default there).
+    takes its default there).  With ``mesh`` (parallel/mesh.py, one
+    process) each chunk's sources are split across the shards, the CSR
+    replicated on their devices: shard ``p`` walks its slice under the
+    chunk's key and cuts its rows to the top L; the chunks are those of
+    :func:`_sharded_trace_chunks`, and the baskets bitwise the unsharded
+    engine's at the same ``source_chunk``.  Results live on the first
+    shard's device.
     """
+    if mesh is not None:
+        yield from _sharded_trace_basket_chunks(
+            graph, L, iterations, damping, seed, source_chunk, slots, unroll,
+            stratified, merge_algo, mesh,
+        )
+        return
     dev = resolve_device(device)
     algo = resolve_merge_algo(merge_algo, dev)
     n = graph.num_nodes
@@ -448,6 +490,57 @@ def walk_trace_basket_chunks(
         trace = trace[:real]
         top = _trace_topl(trace, sources[:real], r_total, L, row_chunk, algo)
         yield s, top, (trace >= 0).sum(), abandoned[:real].sum()
+
+
+def _sharded_trace_basket_chunks(
+    graph, L, iterations, damping, seed, source_chunk, slots, unroll,
+    stratified, merge_algo, mesh,
+):
+    """The mesh branch of :func:`walk_trace_basket_chunks`."""
+    if mesh.group is not None:
+        raise ValueError(
+            "source-sharded walks run in one process: every shard's rows "
+            "are gathered on the first shard's device"
+        )
+    devs = mesh.devices
+    dev0 = devs[0]
+    algo = resolve_merge_algo(merge_algo, dev0)
+    n = graph.num_nodes
+    source_chunk, slots, total, macro_steps, width = _sharded_trace_chunks(
+        n, iterations, damping, source_chunk, slots, unroll, mesh.n_shards
+    )
+    per_shard = source_chunk // mesh.n_shards
+    row_chunk = int(max(1, min(per_shard, TRACE_MERGE_ELEMS // (width + 1))))
+    root = _root_key(seed)
+    consts = {
+        dev: (graph.device_graph(dev),
+              torch.tensor(damping, dtype=torch.float32, device=dev),
+              torch.tensor(float(iterations), dtype=torch.float32, device=dev))
+        for dev in set(devs)
+    }
+    for s in range(0, n, source_chunk):
+        key = fold_in(root, s)
+        real = min(source_chunk, n - s)
+        ids, scores = [], []
+        visits = torch.zeros((), dtype=torch.int64, device=dev0)
+        abandoned = torch.zeros((), dtype=torch.int64, device=dev0)
+        for p, dev in mesh.shards:
+            lo = p * per_shard
+            rows = min(per_shard, real - lo)
+            if rows <= 0:  # only padding: the unsharded engine drops it
+                continue
+            dg, damping_t, r_total = consts[dev]
+            sources = torch.arange(s + lo, s + lo + rows, dtype=torch.int64, device=dev)
+            trace, aband = walk_trace_chunk(
+                dg.start_deg, dg.indices, sources, key, damping_t, total, slots,
+                macro_steps, unroll, stratified=stratified, rows=(lo, source_chunk),
+            )
+            top = _trace_topl(trace, sources, r_total, L, row_chunk, algo)
+            ids.append(top.ids.to(dev0))
+            scores.append(top.scores.to(dev0))
+            visits += (trace >= 0).sum().to(dev0)
+            abandoned += aband.sum().to(dev0)
+        yield s, Baskets(torch.cat(ids), torch.cat(scores)), visits, abandoned
 
 
 def walk_count_chunks(
@@ -509,6 +602,7 @@ def walk_baskets(
     stratified: bool = False,
     merge_algo: str | None = None,
     device=None,
+    mesh=None,
 ):
     """Top-L walk baskets ``[N, L]`` for every node of the graph.
 
@@ -523,11 +617,13 @@ def walk_baskets(
     ``engine``: ``"trace"`` (``"auto"``) or ``"counts"`` (see the module
     doc); ``max_steps`` applies to the counts engine.  ``merge_algo`` is
     the trace top-L's pipeline (None: the kernel on CUDA).  ``device``:
-    None means ``"cuda"``.
+    None means ``"cuda"``.  ``mesh`` shards the sources
+    (:func:`walk_trace_basket_chunks`; the trace engine) and puts the
+    result on its first shard's device.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     n = graph.num_nodes
-    if engine == "auto":
+    if engine == "auto" or mesh is not None:
         engine = "trace"
     if engine not in ("counts", "trace"):
         raise ValueError(f"unknown walk engine {engine!r}")
@@ -538,7 +634,7 @@ def walk_baskets(
         for _, top, v, a in walk_trace_basket_chunks(
             graph, L, iterations, damping, seed=seed,
             source_chunk=source_chunk, slots=slots, stratified=stratified,
-            merge_algo=merge_algo, device=dev,
+            merge_algo=merge_algo, device=dev, mesh=mesh,
         ):
             visit_parts.append(v)
             abandoned_parts.append(a)

@@ -107,11 +107,17 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform_many(
-    keys: Sequence[Key], shape: Sequence[int], device
+    keys: Sequence[Key], shape: Sequence[int], device,
+    rows: Tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` for each key, stacked:
     ``float32[len(keys), *shape]`` on ``device``.  One hash over all keys
-    at once (the keys broadcast against the shape's counters)."""
+    at once (the keys broadcast against the shape's counters).
+
+    ``rows=(offset, total)`` draws a window of a larger array: the result
+    is rows ``offset .. offset + shape[1]`` along axis 1 of
+    ``jax.random.uniform(key, (shape[0], total, *shape[2:]))`` (the counters
+    are partitionable, so a slice of the draw costs only its own bits)."""
     shape = tuple(int(s) for s in shape)
     n = 1
     for s in shape:
@@ -121,7 +127,13 @@ def uniform_many(
     k2 = torch.stack([torch.as_tensor(w[1], dtype=torch.int64) for w in words])
     k1 = k1.to(device)[:, None]
     k2 = k2.to(device)[:, None]
-    idx = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if rows is not None:
+        offset, total = rows
+        inner = n // max(shape[0] * shape[1], 1)  # elements past axis 1
+        lead, rest = idx // (shape[1] * inner), idx % (shape[1] * inner)
+        idx = (lead * total + offset) * inner + rest
+    idx = idx[None, :]
     b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK32)
     return _bits_to_unit_float(b1 ^ b2).reshape((len(words),) + shape)
 

@@ -36,6 +36,7 @@ when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -998,6 +999,299 @@ def phase_dense(smi: str) -> dict:
             for k in grank_launches}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic kernels for the bitwise checks of phase 7:
+    the sort pipeline sums each row's runs with ``scatter_add_``, which on
+    CUDA adds through atomics in no fixed order, so two runs of one merge
+    can differ in last bits.  In this mode it sums through a sorted
+    ``index_put_`` instead.  The merge kernel is deterministic either way."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def emit_ring(part: str, smi: str, obj: dict) -> None:
+    emit({"phase": 7, "part": part, "nvidia_smi": smi, **obj})
+
+
+def same_baskets(a, b) -> bool:
+    return tuple(a.ids.shape) == tuple(b.ids.shape) and same_bits(a, b)
+
+
+def ring_rounds(graph, d: int, L_: int, partitions) -> list:
+    from approximated_personalized_pagerank_tpu_torch.parallel.ring import build_ring_plan
+
+    return [len(build_ring_plan(graph, p, d, L_, algo="kernel").rounds) for p in partitions]
+
+
+def ring_eat(eat, smi: str) -> tuple:
+    """Phase 7a: the ring at D=1 on Eat (K=50, L=100, 30 half-sweeps):
+    median of 3 walls beside sparse's; under deterministic kernels its ids
+    equal the sparse engine's; quality through ``benchmark_sampled(mesh=)``.
+    Phase 7b: 4 virtual shards on the card, bitwise equal to D=1.  Returns
+    the launches of the timed D=1 and D=4 runs, and the deterministic D=1
+    result."""
+    from approximated_personalized_pagerank_tpu_torch import (
+        benchmark_sampled,
+        grank_baskets,
+        make_mesh,
+        sample_result,
+    )
+
+    card = torch.device("cuda", 0)
+    mesh1, mesh4 = make_mesh(1, [card]), make_mesh(4, [card] * 4)
+    ring = lambda mesh: grank_baskets(eat, K, L, ITERS, DAMPING, TOL, mesh=mesh,  # noqa: E731
+                                      return_info=True)
+    sparse = lambda: grank_baskets(eat, K, L, ITERS, DAMPING, TOL, engine="sparse",  # noqa: E731
+                                   return_info=True)
+    timed(lambda: ring(mesh1))  # warm-up
+    clear_counts()
+    (r1_any, info), first = timed(lambda: ring(mesh1))
+    launches = read_counts()
+    ring_walls = [first] + [timed(lambda: ring(mesh1))[1] for _ in range(2)]
+    sparse_walls = [timed(sparse)[1] for _ in range(3)]
+    with deterministic():
+        r1, r1_info = ring(mesh1)
+        s1, s1_info = sparse()
+        r4, r4_info = ring(mesh4)
+    ids_equal = bool(torch.equal(r1.ids, s1.ids))
+    (q,) = benchmark_sampled([sample_result(r1, eat, 200, True, seed=0)], eat, mesh=mesh1)
+    ring_wall, sparse_wall = float(np.median(ring_walls)), float(np.median(sparse_walls))
+    emit_ring("a: ring D=1 on Eat", smi, {
+        "K": K, "L": L, "half_sweeps": ITERS, "tol": TOL,
+        "wall_s": ring_wall, "walls_s": ring_walls, "sparse_wall_s": sparse_wall,
+        "sparse_walls_s": sparse_walls, "ring_vs_sparse": ring_wall / sparse_wall,
+        "iterations_ran": info["iterations_ran"], "sparse_iterations_ran": s1_info["iterations_ran"],
+        "rounds": ring_rounds(eat, 1, L, (0, 1)), "kernel_launches": launches_json(launches),
+        "ids_identical_to_sparse": ids_equal,
+        "scores_bitwise_equal_to_sparse": same_baskets(r1, s1),
+        "jaccard_average": q["jaccard average"], "recall_average": q["recall average"],
+        "kendall_average": q["kendall average"]})
+    check(ids_equal, "7a: ring D=1 ids differ from the sparse engine's")
+    check(r1_info["iterations_ran"] == s1_info["iterations_ran"] == info["iterations_ran"],
+          "7a: ring and sparse ran different half-sweeps")
+    check(q["jaccard average"] >= 0.90, "7a: ring Eat jaccard_average < 0.90")
+    check(q["recall average"] >= 0.94, "7a: ring Eat recall_average < 0.94")
+
+    clear_counts()
+    (r4_any, info4), wall4 = timed(lambda: ring(mesh4))
+    launches4 = read_counts()
+    emit_ring("b: ring D=4 virtual shards on Eat", smi, {
+        "wall_s": wall4, "iterations_ran": info4["iterations_ran"],
+        "rounds": ring_rounds(eat, 4, L, (0, 1)), "kernel_launches": launches_json(launches4),
+        "bitwise_equal_to_d1": same_baskets(r4, r1),
+        # the timed runs, without deterministic kernels (not a check)
+        "timed_runs_bitwise_equal": same_baskets(r4_any, r1_any)})
+    check(same_baskets(r4, r1) and r4_info == r1_info, "7b: D=4 differs from D=1 on Eat")
+    return [launches, launches4], r1
+
+
+def ring_scale(big, smi: str) -> list:
+    """Phase 7c: two half-sweeps (tol -1) on phase 3's 1M-node graph at D=1
+    and D=4 virtual shards, under deterministic kernels: bitwise equal;
+    the flat hub rows (wider than the kernel, so through the sort
+    pipeline); walls and peak memory against the full basket."""
+    from approximated_personalized_pagerank_tpu_torch import make_mesh
+    from approximated_personalized_pagerank_tpu_torch.ops.merge_kernel import MAX_KERNEL_WIDTH
+    from approximated_personalized_pagerank_tpu_torch.parallel.ring import (
+        build_ring_plan,
+        ring_grank_baskets,
+    )
+
+    card = torch.device("cuda", 0)
+    plans = [build_ring_plan(big, p, 1, L, algo="kernel") for p in (0, 1)]
+    flat = sum(int((b.rows < big.num_nodes).sum()) for p in plans for r in p.rounds
+               for b in r if b.cap * L + 1 > MAX_KERNEL_WIDTH)
+    out, all_launches = {}, []
+    for d in (1, 4):
+        clear_counts()
+        with deterministic():
+            (b, info), wall = timed(lambda: ring_grank_baskets(
+                big, K, L, 2, DAMPING, -1.0, mesh=make_mesh(d, [card] * d),
+                analyze_memory=True))
+        all_launches.append(read_counts())
+        out[d] = b
+        mem = info["memory"]
+        emit_ring(f"c: ring D={d} at 1M nodes", smi, {
+            "graph": "powerlaw(1e6, 1e7, seed=7, locality=0.8)", "half_sweeps": 2,
+            "deterministic_kernels": True, "wall_s": wall,
+            "iterations_ran": info["iterations_ran"], "rounds": ring_rounds(big, d, L, (0, 1)),
+            "flat_hub_rows_through_sort": flat, "shard_bytes_planned": mem["shard_bytes"],
+            "full_basket_bytes": mem["full_basket_bytes"],
+            "peak_bytes": mem["device_peak_bytes"][str(card)],
+            "kernel_launches": launches_json(all_launches[-1])})
+        check(info["iterations_ran"] == 2, "7c: the 1M ring did not run 2 half-sweeps")
+        check(bool(torch.isfinite(b.scores).all()), "7c: non-finite scores at 1M")
+    check(flat > 0, "7c: no flat hub row at 1M nodes")
+    check(same_baskets(out[1], out[4]), "7c: D=4 differs from D=1 at 1M nodes")
+    return all_launches
+
+
+def ring_mc(eat, smi: str) -> list:
+    """Phase 7d: Eat MC (K=50, L=200, R=1000, seed 1) through
+    ``mccompletepathv2_multi_baskets`` on 2 virtual shards, under
+    deterministic kernels: bitwise equal to the D=1 ring combine of the
+    unsharded walks; the sharded walks bitwise equal to the unsharded ones
+    at the same chunk size; quality.  Returns the call's launches."""
+    from approximated_personalized_pagerank_tpu_torch import (
+        benchmark_sampled,
+        make_mesh,
+        mccompletepathv2_multi_baskets,
+        sample_result,
+        walk_baskets,
+    )
+    from approximated_personalized_pagerank_tpu_torch.ops import walk as tw
+    from approximated_personalized_pagerank_tpu_torch.parallel.ring import ring_mc_combine
+
+    card = torch.device("cuda", 0)
+    mesh1, mesh2 = make_mesh(1, [card]), make_mesh(2, [card] * 2)
+    chunk = tw._trace_chunks(eat.num_nodes, MC_R, DAMPING, None, None, MC_UNROLL)[0]
+    check(tw._sharded_trace_chunks(eat.num_nodes, MC_R, DAMPING, None, None, MC_UNROLL, 2)[0]
+          == chunk, "7d: the sharded and unsharded walk chunks differ on Eat")
+    clear_counts()
+    with deterministic():
+        multi, wall = timed(lambda: mccompletepathv2_multi_baskets(
+            eat, MC_K, MC_L, MC_R, DAMPING, 2, seed=1, devices=[card] * 2))
+    launches = read_counts()
+    (w2, w2_info), w2_s = timed(lambda: walk_baskets(eat, MC_L, MC_R, DAMPING, seed=1,
+                                                     mesh=mesh2, return_info=True))
+    (w1, w1_info), w1_s = timed(lambda: walk_baskets(eat, MC_L, MC_R, DAMPING, seed=1,
+                                                     return_info=True))
+    with deterministic():
+        one, one_s = timed(lambda: ring_mc_combine(eat, w1, MC_K, MC_L, DAMPING, 2,
+                                                   mesh=mesh1))
+    (q,) = benchmark_sampled([sample_result(multi, eat, 200, True, seed=0)], eat, mesh=mesh2)
+    emit_ring("d: MC on Eat, 2 virtual shards", smi, {
+        "K": MC_K, "L": MC_L, "R": MC_R, "walk_chunk": chunk, "wall_s": wall,
+        "sharded_walks_s": w2_s, "unsharded_walks_s": w1_s, "d1_ring_combine_s": one_s,
+        "walk_steps": w1_info["walk_steps"], "rounds": ring_rounds(eat, 2, MC_L, (None,)),
+        "kernel_launches": launches_json(launches),
+        "walks_bitwise_equal": same_baskets(w1, w2) and w1_info == w2_info,
+        "bitwise_equal_to_d1_ring": same_baskets(multi, one),
+        "jaccard_average": q["jaccard average"], "recall_average": q["recall average"],
+        "kendall_average": q["kendall average"]})
+    check(same_baskets(w1, w2) and w1_info == w2_info, "7d: sharded walks differ")
+    check(same_baskets(multi, one), "7d: sharded MC differs from the D=1 ring")
+    check(q["jaccard average"] >= 0.94, "7d: sharded MC jaccard_average < 0.94")
+    return [launches]
+
+
+def ring_oracle(eat, smi: str) -> None:
+    """Phase 7e: the oracle for 64 Eat sources (strict, seed 0) on 4
+    virtual shards against the unsharded oracle."""
+    from approximated_personalized_pagerank_tpu_torch import make_mesh, ppr_single_source_batch
+
+    rng = np.random.default_rng(0)
+    sources = rng.permutation(np.nonzero(eat.out_degree > 0)[0])[:64]
+    mesh4 = make_mesh(4, [torch.device("cuda", 0)] * 4)
+    plain, plain_s = timed(lambda: ppr_single_source_batch(eat, sources, 100, DAMPING, 1e-4))
+    sharded, sharded_s = timed(lambda: ppr_single_source_batch(eat, sources, 100, DAMPING, 1e-4,
+                                                               mesh=mesh4))
+    err = float((plain - sharded).abs().max())
+    emit_ring("e: the oracle on 4 virtual shards", smi, {
+        "sources": 64, "unsharded_s": plain_s, "sharded_s": sharded_s, "max_abs_err": err})
+    check(err <= 1e-6, f"7e: the sharded oracle is {err} from the unsharded one")
+
+
+def ring_nccl(eat, d1, smi: str) -> list:
+    """Phase 7f: the process-group path at world size 1 over NCCL: the ring
+    on Eat (deterministic kernels) equal to 7a's, its convergence max
+    through ``all_reduce`` once a half-sweep.  Returns its launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from approximated_personalized_pagerank_tpu_torch import grank_baskets, make_mesh
+    from approximated_personalized_pagerank_tpu_torch.parallel.mesh import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = make_mesh()
+        check(mesh.group is not None and mesh.n_shards == 1, "7f: no process-group mesh")
+        backend = dist.get_backend(mesh.group)
+        clear_counts()
+        with deterministic():
+            (out, info), wall = timed(lambda: grank_baskets(
+                eat, K, L, ITERS, DAMPING, TOL, mesh=mesh, return_info=True))
+        launches = read_counts()
+    finally:
+        dist.destroy_process_group()
+    emit_ring("f: process group of 1 over NCCL", smi, {
+        "backend": backend, "init_s": init_s, "wall_s": wall,
+        "iterations_ran": info["iterations_ran"], "all_reduce_calls": info["iterations_ran"],
+        "bitwise_equal_to_7a": same_baskets(out, d1)})
+    check(backend == "nccl", f"7f: backend {backend}, not nccl")
+    check(same_baskets(out, d1), "7f: the NCCL ring differs from 7a's")
+    return [launches]
+
+
+def ring_cli(smi: str) -> None:
+    """Phase 7g: ``ppr-torch --algorithm grank_multi --n-shards 1`` saves
+    baskets equal to a direct call (deterministic kernels); with one card
+    ``--n-shards 2`` raises "exceeds available devices"."""
+    import io
+    import os
+
+    from approximated_personalized_pagerank_tpu_torch import (
+        grank_multi_baskets,
+        load_baskets,
+        load_csv_graph,
+        sample_graph_path,
+    )
+    from approximated_personalized_pagerank_tpu_torch.cli import main as cli_main
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cli_ring_baskets.npz")
+    args = ["--algorithm", "grank_multi", "--no-eval", "--save", path]
+    with deterministic(), contextlib.redirect_stdout(io.StringIO()):
+        rc, cli_s = timed(lambda: cli_main(args + ["--n-shards", "1"]))
+        direct = grank_multi_baskets(load_csv_graph(sample_graph_path()), K, L, ITERS, DAMPING,
+                                     TOL, 1)
+    check(rc == 0, f"7g: the CLI exited {rc}")
+    loaded, _ = load_baskets(path)
+    equal = same_baskets(loaded, direct)
+    raised = None
+    if torch.cuda.device_count() == 1:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_main(args + ["--n-shards", "2"])
+        except ValueError as e:
+            raised = str(e)
+    emit_ring("g: the CLI's grank_multi", smi, {
+        "cli_s": cli_s, "bitwise_equal_to_direct_call": equal, "n_shards_2_raised": raised})
+    check(equal, "7g: the CLI's ring baskets differ from a direct call")
+    check(torch.cuda.device_count() > 1 or (raised or "").startswith(
+        "n_shards=2 exceeds available devices (1)"), "7g: --n-shards 2 did not raise on one card")
+
+
+def phase_ring(big, smi: str) -> list:
+    """Phase 7: the sharded paths (7a-7g), and its wall.  D > 1 runs as
+    virtual shards on the one card.  Returns the main path runs' launches."""
+    from approximated_personalized_pagerank_tpu_torch import load_eat_graph
+
+    t0 = time.perf_counter()
+    eat = load_eat_graph()
+    runs, d1 = ring_eat(eat, smi)
+    runs += ring_scale(big, smi)
+    runs += ring_mc(eat, smi)
+    ring_oracle(eat, smi)
+    runs += ring_nccl(eat, d1, smi)
+    ring_cli(smi)
+    emit_ring("all", smi, {"wall_s": time.perf_counter() - t0})
+    check(all(sum(r["fused_merge_topl"].values()) > 0 for r in runs),
+          "a ring run launched no matrix entry")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1008,9 +1302,12 @@ def main() -> int:
     scale_launches, big = phase_scale()
     mc_launches, mc_errs = phase_mc()
     walk_launches = phase_walk_scale(big)
+    dense_launches = phase_dense(smi)
+    ring_launches = phase_ring(big, smi)
     del big
     # the main paths' runs
-    runs = [eat_launches, scale_launches, mc_launches, walk_launches, phase_dense(smi)]
+    runs = [eat_launches, scale_launches, mc_launches, walk_launches, dense_launches,
+            *ring_launches]
     launches = {k: sum(sum(r[k].values()) for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port spends its time on the card.
 
-    python3 profile_port.py [grank|mc|dense]
+    python3 profile_port.py [grank|mc|dense|ring]
 
 Runs the port's smoke cells under ``torch.profiler`` (no argument: all
-three modes).  ``grank``: sparse GRank on Eat (K=50, L=100, 30
+four modes).  ``grank``: sparse GRank on Eat (K=50, L=100, 30
 half-sweeps, tol 1e-4) and two half-sweeps on
 ``powerlaw_graph(1_000_000, 10_000_000, seed=7, locality=0.8)``.  ``mc``:
 sparse MCCompletePathV2 on Eat (K=50, L=200, R=1000, seed 1, as
 chip_smoke.py phase 4) and its walks alone (``walk_baskets``, the trace
 top-L included).  ``dense``: the dense engine on Eat (chip_smoke.py phase
 6): GRank as above, and MCCompletePathV2 through ``engine="auto"``.
-Every cell runs twice
+``ring``: GRank on Eat as above through the ring (chip_smoke.py phase 7) at
+D=1 and at D=4 virtual shards on the one card.  Every cell runs twice
 unprofiled (a warm-up, then the timed call) and once profiled.  For each it
 prints one JSON line: host wall time, the summed time of all device
 activities (kernels and copies), the device's idle share of the host wall
@@ -101,14 +102,15 @@ def main() -> int:
     from approximated_personalized_pagerank_tpu_torch import (
         grank_baskets,
         load_eat_graph,
+        make_mesh,
         mccompletepathv2_baskets,
         walk_baskets,
     )
     from approximated_personalized_pagerank_tpu_torch.ops.walk import _trace_chunks
     from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
-    modes = sys.argv[1:] or ["grank", "mc", "dense"]
-    if set(modes) - {"grank", "mc", "dense"}:
+    modes = sys.argv[1:] or ["grank", "mc", "dense", "ring"]
+    if set(modes) - {"grank", "mc", "dense", "ring"}:
         print(f"profile_port: unknown mode in {modes}", file=sys.stderr)
         return 2
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
@@ -143,6 +145,13 @@ def main() -> int:
         profiled("eat_dense_mc",  # auto: dense up to 32,768 nodes
                  lambda: mccompletepathv2_baskets(eat, MC_K, MC_L, MC_R, DAMPING, seed=1),
                  -(-eat.num_nodes // chunk), "walk_chunk")
+    if "ring" in modes:
+        card = torch.device("cuda", 0)
+        for d in (1, 4):
+            mesh = make_mesh(d, [card] * d)
+            profiled(f"eat_ring_d{d}",
+                     lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4, mesh=mesh),
+                     30, "half_sweep")
     return 0
 
 

@@ -58,11 +58,35 @@ def test_cli_mc_and_the_sharded_paths(tmp_path, capsys, tiny_csv):
                "--L", "6", "--iterations", "50", "--seed", "1", "--no-eval",
                "--device", "cpu"])
     assert rc == 0 and "mccompletepathv2 run-time" in capsys.readouterr().out
-    for extra in (["--algorithm", "grank_multi", "--n-shards", "2"], ["--n-shards", "2"]):
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            main(["--graph", tiny_csv, "--device", "cpu"] + extra)
+    # plain grank ignores --n-shards, as the JAX package's CLI does
+    paths = [str(tmp_path / f"{k}.npz") for k in ("one", "two")]
+    for path, shards in zip(paths, ("1", "2")):
+        assert main(["--graph", tiny_csv, "--no-eval", "--device", "cpu", "--n-shards",
+                     shards, "--save", path]) == 0
+    (a, _), (b, _) = (pt.load_baskets(p, device="cpu") for p in paths)
+    assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
     with pytest.raises(ValueError, match="unknown merge algo 'pallas'"):
         main(["--graph", tiny_csv, "--merge-algo", "pallas", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("algorithm,shards", [("grank_multi", 4), ("mccompletepathv2", 2)])
+def test_cli_sharded_paths_save_the_direct_calls(tmp_path, capsys, tiny_csv, algorithm,
+                                                 shards):
+    path = str(tmp_path / "sharded.npz")
+    rc = main(["--graph", tiny_csv, "--algorithm", algorithm, "--n-shards", str(shards),
+               "--K", "3", "--L", "6", "--iterations", "40", "--seed", "2",
+               "--test-nodes", "4", "--device", "cpu", "--save", path])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert f"{algorithm} run-time" in printed and "jaccard average" in printed
+    loaded, _ = pt.load_baskets(path, device="cpu")
+    g = pt.load_csv_graph(tiny_csv)
+    if algorithm == "grank_multi":
+        direct = pt.grank_multi_baskets(g, 3, 6, 40, 0.85, 1e-4, shards, device="cpu")
+    else:
+        direct = pt.mccompletepathv2_multi_baskets(g, 3, 6, 40, 0.85, shards, seed=2,
+                                                   device="cpu")
+    assert torch.equal(loaded.ids, direct.ids) and torch.equal(loaded.scores, direct.scores)
 
 
 def test_cli_profile_writes_a_trace(tmp_path, capsys, tiny_csv):
