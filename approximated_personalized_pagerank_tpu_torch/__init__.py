@@ -40,7 +40,7 @@ def load_eat_graph() -> Graph:
 
 
 from .models.benchmark import benchmark_algorithm, benchmark_sampled, sample_result
-from .models.common import baskets_to_dict
+from .models.common import baskets_to_dict, device_graph
 from .models.grank import grank, grank_baskets, grank_multi, grank_multi_baskets
 from .models.mccompletepathv2 import (
     mccompletepathv2,
@@ -80,6 +80,7 @@ __all__ = [
     "benchmark_sampled",
     "sample_result",
     "baskets_to_dict",
+    "device_graph",
     "Baskets",
     "fused_merge_topl",
     "execution_order",

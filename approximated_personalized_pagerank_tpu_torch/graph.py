@@ -285,6 +285,14 @@ class Graph:
             keys=keys,
         )
 
+    def to_dict(self) -> Dict[Hashable, List[Hashable]]:
+        """Back to the reference's adjacency model (external keys)."""
+        keys = self.keys
+        return {
+            keys[v]: [keys[s] for s in self.successors(v)]
+            for v in range(self.num_nodes)
+        }
+
     # ---------------------------------------------------------------- queries
     def successors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v] : self.indptr[v + 1]]
@@ -312,12 +320,26 @@ class Graph:
         component; each component's root goes to partition 0.  Odd cycles
         may put neighbours in the same partition, which costs convergence
         speed, not correctness.
+
+        Runs the native BFS (utils/io.py, ``ppr_bfs_bipartition``), or its
+        plain version :meth:`_bfs_bipartition` where the native library
+        cannot be built; ``utils.io.paths_ran()`` says which ran.
         """
         if self._partition is None:
-            self._partition = self._bfs_bipartition()
+            from .utils.io import native_available, native_bfs_bipartition, note_path
+
+            if native_available():
+                self._partition = native_bfs_bipartition(
+                    self.indptr, self.indices, *self.csc
+                )
+            else:
+                self._partition = self._bfs_bipartition()
+                note_path("bfs_bipartition", "numpy")
         return self._partition
 
     def _bfs_bipartition(self) -> np.ndarray:
+        """The 2-colouring in numpy, one frontier at a time: the plain
+        version of the native BFS."""
         n = self.num_nodes
         color = np.full(n, 255, dtype=np.uint8)  # 255 = unvisited
         if n == 0:

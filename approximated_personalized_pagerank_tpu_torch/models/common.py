@@ -4,8 +4,15 @@ from __future__ import annotations
 
 from typing import Dict, Hashable
 
-from ..graph import Graph
+from ..graph import DeviceGraph, Graph
 from ..ops.basket import Baskets
+
+
+def device_graph(graph: Graph, device="cuda") -> DeviceGraph:
+    """The graph's CSR on ``device`` (the card by default), cached on the
+    graph: :meth:`Graph.device_graph`, exported at the top level as the
+    JAX package exports its ``device_graph``."""
+    return graph.device_graph(device)
 
 
 def baskets_to_dict(

@@ -74,6 +74,7 @@ def grank_baskets(
     return_info: bool = False,
     device=None,
     mesh=None,
+    host_loop: bool = False,
 ):
     """GRank returning ``[N, K]`` basket tensors over internal node ids.
 
@@ -97,8 +98,15 @@ def grank_baskets(
     ``info["iterations_ran"]`` is the number of half-sweeps the loop ran
     (a tolerance stop can end it before ``iterations``); the dense engine
     adds ``info["flops"]``, its products' FLOPs.
+
+    ``host_loop`` is the JAX package's flag: there it steps the sparse
+    runner from the host, so ``host_loop=True`` turns ``engine="auto"``
+    into ``"sparse"``.  That is all it does here, where the loop always
+    runs on the host.
     """
     check_basket_params(K, L)
+    if host_loop and engine == "auto":
+        engine = "sparse"
     check_iterations(iterations)
     check_damping(damping)
     dev = resolve_device(device) if mesh is None else mesh.devices[0]

@@ -61,27 +61,54 @@ def run_index(ids: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(is_start, dim=-1) - 1
 
 
+def run_sums(
+    ids: torch.Tensor, scores: torch.Tensor, max_run: int | None = None
+) -> torch.Tensor:
+    """Inclusive sums of each run of equal ids in id-sorted rows: a slot
+    holds the sum of its run's scores up to itself, so a run's last slot
+    holds the run's total.
+
+    A log-step segmented scan: pass ``d`` (1, 2, 4, ... below the longest
+    run, ``max_run``, which defaults to the row width) adds the value ``d``
+    slots back where that slot is in the same run.  Elementwise ops only,
+    so the sums take one fixed order on every device (no atomics): a run's
+    total depends only on its values in row order, not on where the run
+    sits in the row nor on ``max_run`` (a pass past a run's length adds
+    nothing to it).  Runs longer than ``max_run`` get partial totals.
+    """
+    x = scores.to(torch.float32).clone()
+    w = ids.shape[-1] if max_run is None else min(max_run, ids.shape[-1])
+    d = 1
+    while d < w:
+        same = ids[..., d:] == ids[..., :-d]
+        x[..., d:] += torch.where(same, x[..., :-d], 0.0)
+        d *= 2
+    return x
+
+
+def run_ends(ids: torch.Tensor) -> torch.Tensor:
+    """Whether each slot of an id-sorted row is the last of its run."""
+    is_end = torch.ones_like(ids, dtype=torch.bool)
+    is_end[..., :-1] = ids[..., 1:] != ids[..., :-1]
+    return is_end
+
+
 def combine_sorted_runs(
-    ids: torch.Tensor, scores: torch.Tensor
+    ids: torch.Tensor, scores: torch.Tensor, max_run: int | None = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum duplicate ids within each row of an id-sorted candidate list.
 
     Input rows must be sorted ascending by id.  Each run of equal ids is
-    collapsed onto its last slot, which holds the run's score sum and keeps
-    its id; all other slots become sentinel (-1) with score 0.  Sentinel-id
-    runs stay sentinel.  (The batched form of the reference's
+    collapsed onto its last slot, which holds the run's score sum
+    (:func:`run_sums`; ``max_run`` bounds a live run's length) and keeps
+    its id; all other slots become sentinel (-1) with score 0.
+    Sentinel-id runs stay sentinel.  (The batched form of the reference's
     ``currentMap[k] += ...``, include/grank.h:114-115.)
     """
-    run = run_index(ids)
-    totals = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
-    totals.scatter_add_(-1, run, scores.to(torch.float32))
-    is_end = torch.ones_like(ids, dtype=torch.bool)
-    is_end[..., :-1] = ids[..., 1:] != ids[..., :-1]
-    live = is_end & (ids >= 0)
+    totals = run_sums(ids, scores, max_run)
+    live = run_ends(ids) & (ids >= 0)
     out_ids = torch.where(live, ids, torch.full_like(ids, SENTINEL))
-    out_scores = torch.where(
-        live, torch.gather(totals, -1, run), torch.zeros_like(totals)
-    )
+    out_scores = torch.where(live, totals, torch.zeros_like(totals))
     return out_ids, out_scores
 
 
@@ -140,12 +167,13 @@ def norm1_rows(a: Baskets, b: Baskets) -> torch.Tensor:
     """Row-wise L1 distance treating each row as a sparse vector.
 
     Mirrors ``norm1`` (include/internal/pprInternal.h:148-165): keys absent
-    from one side count with value 0.
+    from one side count with value 0.  An id occurs at most once in a
+    basket row, so a live run holds at most two entries: one scan pass.
     """
     ids = torch.cat([a.ids, b.ids], dim=-1)
     scores = torch.cat([a.scores, -b.scores], dim=-1)
     ids, scores = sort_rows_by_id(ids, scores)
-    out_ids, diff = combine_sorted_runs(ids, scores)
+    out_ids, diff = combine_sorted_runs(ids, scores, max_run=2)
     return torch.where(out_ids >= 0, diff.abs(), torch.zeros_like(diff)).sum(dim=-1)
 
 

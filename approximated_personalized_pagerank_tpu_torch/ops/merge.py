@@ -106,18 +106,21 @@ def _l_pad(L: int) -> int:
 
 
 def _merge_rows(
-    ids: torch.Tensor, scores: torch.Tensor, L: int, algo: str
+    ids: torch.Tensor, scores: torch.Tensor, L: int, algo: str,
+    lists: int | None = None,
 ) -> Baskets:
     """Row-wise duplicate-id combine + top-L with the selected pipeline.
 
-    Input: candidate rows [C, W] with SENTINEL (-1) padding.
+    Input: candidate rows [C, W] with SENTINEL (-1) padding; ``lists``, if
+    known, is how many lists of distinct ids a row joins (so no id occurs
+    more often: the sort pipeline's bound on a run).
     Output: Baskets rows [C, L] with SENTINEL padding, sorted desc by score.
     Kernel-pipeline rows narrower than MIN_NETWORK_WIDTH, or whose pow2
     width exceeds the cap, take the sort pipeline.
     """
     if not _takes_kernel(algo, ids.shape[-1]):
         ids, scores = sort_rows_by_id(ids, scores)
-        ids, scores = combine_sorted_runs(ids, scores)
+        ids, scores = combine_sorted_runs(ids, scores, max_run=lists)
         return keep_top(ids, scores, L)
     l_pad = _l_pad(L)
     out_ids, out_scores = fused_merge_topl(*pad_candidates(ids, scores, l_pad), l_pad)
@@ -228,7 +231,8 @@ def _hub_merge_chunk(
                                  group_scale, None, None, m, _l_pad(m))
     else:
         cand_ids, cand_scores = gather_successors(basket.ids, basket.scores, group_succ)
-        part = _merge_rows(cand_ids, cand_scores * group_scale[:, None], m, algo)
+        part = _merge_rows(cand_ids, cand_scores * group_scale[:, None], m, algo,
+                           lists=sub)
     pids = part.ids.reshape(c, g * m)
     pscs = part.scores.reshape(c, g * m)
     # tree-reduce partial top-M lists until one final row fits
@@ -240,14 +244,15 @@ def _hub_merge_chunk(
             pids = torch.nn.functional.pad(pids, (0, pad_cols), value=SENTINEL)
             pscs = torch.nn.functional.pad(pscs, (0, pad_cols))
         part = _merge_rows(
-            pids.reshape(c * g2, gg * m), pscs.reshape(c * g2, gg * m), m, algo
+            pids.reshape(c * g2, gg * m), pscs.reshape(c * g2, gg * m), m, algo,
+            lists=gg,
         )
         g = g2
         pids = part.ids.reshape(c, g * m)
         pscs = part.scores.reshape(c, g * m)
     ids_f = torch.cat([pids, rows[:, None].to(torch.int32)], dim=-1)
     scs_f = torch.cat([pscs, self_scores[:, None]], dim=-1)
-    out = _merge_rows(ids_f, scs_f, L, algo)
+    out = _merge_rows(ids_f, scs_f, L, algo, lists=g + 1)
     return Baskets(out.ids, out.scores * post_scale[:, None])
 
 
@@ -294,7 +299,7 @@ def merge_bucket(
             ids, scores, post = _bucket_candidates(
                 basket, rows_c, succ_c, damping, mode
             )
-            new = _merge_rows(ids, scores, L, algo)
+            new = _merge_rows(ids, scores, L, algo, lists=d + 1)
             new = Baskets(new.ids, new.scores * post[:, None])
         if compute_diff and basket is not None:
             old_c = Baskets(basket.ids[rows_c], basket.scores[rows_c])

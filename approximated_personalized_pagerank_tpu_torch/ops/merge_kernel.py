@@ -49,7 +49,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from .basket import SENTINEL, Baskets, run_index, sort_rows_by_id
+from .basket import (
+    SENTINEL, Baskets, run_ends, run_index, run_sums, sort_rows_by_id,
+)
 
 # Id of a dead slot: sorts after every live id.
 PAD_ID = 2**31 - 1
@@ -136,10 +138,15 @@ def merge_topl_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch (same contract)."""
     ids_s, sc_s = sort_rows_by_id(ids, scores)
-    run = run_index(ids_s)
-    # one slot per run, in id order; slots past the row's run count stay PAD
-    run_ids = torch.full_like(ids_s, PAD_ID).scatter_(-1, run, ids_s)
-    run_sc = torch.zeros_like(sc_s).scatter_add_(-1, run, sc_s)
+    # one slot per run, in id order: each run's last slot writes its id and
+    # total to the run's index; the other slots write to a spare column that
+    # is dropped.  Slots past the row's run count stay PAD.
+    c, w = ids_s.shape
+    slot = torch.where(run_ends(ids_s), run_index(ids_s), w)
+    run_ids = torch.full((c, w + 1), PAD_ID, dtype=ids_s.dtype, device=ids_s.device)
+    run_ids = run_ids.scatter_(-1, slot, ids_s)[:, :w]
+    run_sc = torch.zeros((c, w + 1), dtype=torch.float32, device=ids_s.device)
+    run_sc = run_sc.scatter_(-1, slot, run_sums(ids_s, sc_s))[:, :w]
     live = (run_ids >= 0) & (run_ids != PAD_ID)
     key = torch.where(live, run_sc, torch.full_like(run_sc, float("-inf")))
     top_key, top_pos = torch.topk(key, l_pad, dim=-1, largest=True, sorted=True)

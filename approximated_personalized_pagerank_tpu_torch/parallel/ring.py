@@ -230,7 +230,7 @@ def _merge_and_scatter(
         cand_scores = cand.scores.reshape(c, cap * L)
     ids = torch.cat([cand_ids, b.rows[:, None].to(torch.int32)], dim=-1)
     scores = torch.cat([cand_scores * scale[:, None], self_scores[:, None]], dim=-1)
-    merged = _merge_rows(ids, scores, L, algo)
+    merged = _merge_rows(ids, scores, L, algo, lists=cap + 1)
     merged = Baskets(merged.ids, merged.scores * post[:, None])
     local = b.rows - lo
     diff = None

@@ -26,7 +26,17 @@ counting each entry's launches in each:
   ``engine="auto"``, which is dense, then its walks and its combine run
   apart, timed, and bitwise equal to the call; (d) dense and sparse GRank
   at the auto cutoff, 16,384 nodes; (e) the CLI on the sample graph,
-  saved and held bitwise against a direct call.
+  saved and held bitwise against a direct call;
+* phase 7: the sharded paths on virtual shards of the one card (7a-7g:
+  the ring on Eat and at 1M nodes, sharded MC, the sharded oracle, a
+  process group of one over NCCL, the CLI's ``grank_multi``), bitwise
+  checks included, and (7h) the sort pipeline's run sums repeated for
+  equal bits;
+* phase 8: the native loader on Eat, then the example drivers
+  (``examples/*_torch.py``): ``run_eat_torch`` at full Eat scale,
+  ``run_synthetic_torch``, ``run_sharded_torch`` and ``bench_ring_torch``
+  at reduced sizes, and the north star, ``run_scale_torch`` at 4.8M nodes
+  and 69M edges, held to the TPU run's quality on the same graph.
 
 Phases 2-4 name ``engine="sparse"``.  Each phase (each part of phase 6)
 prints one JSON line; any failure exits non-zero.  The last line
@@ -39,7 +49,6 @@ from __future__ import annotations
 import contextlib
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -99,11 +108,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    from approximated_personalized_pagerank_tpu_torch.utils.device import card_line
+
+    line = card_line()
+    check(line is not None, "nvidia-smi gave no name and power limit")
+    return line
 
 
 # ------------------------------------------------------------ phase 1 inputs
@@ -999,20 +1009,6 @@ def phase_dense(smi: str) -> dict:
             for k in grank_launches}
 
 
-@contextlib.contextmanager
-def deterministic():
-    """PyTorch's deterministic kernels for the bitwise checks of phase 7:
-    the sort pipeline sums each row's runs with ``scatter_add_``, which on
-    CUDA adds through atomics in no fixed order, so two runs of one merge
-    can differ in last bits.  In this mode it sums through a sorted
-    ``index_put_`` instead.  The merge kernel is deterministic either way."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def emit_ring(part: str, smi: str, obj: dict) -> None:
     emit({"phase": 7, "part": part, "nvidia_smi": smi, **obj})
 
@@ -1029,11 +1025,10 @@ def ring_rounds(graph, d: int, L_: int, partitions) -> list:
 
 def ring_eat(eat, smi: str) -> tuple:
     """Phase 7a: the ring at D=1 on Eat (K=50, L=100, 30 half-sweeps):
-    median of 3 walls beside sparse's; under deterministic kernels its ids
-    equal the sparse engine's; quality through ``benchmark_sampled(mesh=)``.
-    Phase 7b: 4 virtual shards on the card, bitwise equal to D=1.  Returns
-    the launches of the timed D=1 and D=4 runs, and the deterministic D=1
-    result."""
+    median of 3 walls beside sparse's; its ids equal the sparse engine's;
+    quality through ``benchmark_sampled(mesh=)``.  Phase 7b: 4 virtual
+    shards on the card, bitwise equal to D=1.  Returns the launches of the
+    timed D=1 and D=4 runs, and the D=1 result."""
     from approximated_personalized_pagerank_tpu_torch import (
         benchmark_sampled,
         grank_baskets,
@@ -1053,10 +1048,9 @@ def ring_eat(eat, smi: str) -> tuple:
     launches = read_counts()
     ring_walls = [first] + [timed(lambda: ring(mesh1))[1] for _ in range(2)]
     sparse_walls = [timed(sparse)[1] for _ in range(3)]
-    with deterministic():
-        r1, r1_info = ring(mesh1)
-        s1, s1_info = sparse()
-        r4, r4_info = ring(mesh4)
+    r1, r1_info = ring(mesh1)
+    s1, s1_info = sparse()
+    r4, r4_info = ring(mesh4)
     ids_equal = bool(torch.equal(r1.ids, s1.ids))
     (q,) = benchmark_sampled([sample_result(r1, eat, 200, True, seed=0)], eat, mesh=mesh1)
     ring_wall, sparse_wall = float(np.median(ring_walls)), float(np.median(sparse_walls))
@@ -1083,15 +1077,16 @@ def ring_eat(eat, smi: str) -> tuple:
         "wall_s": wall4, "iterations_ran": info4["iterations_ran"],
         "rounds": ring_rounds(eat, 4, L, (0, 1)), "kernel_launches": launches_json(launches4),
         "bitwise_equal_to_d1": same_baskets(r4, r1),
-        # the timed runs, without deterministic kernels (not a check)
         "timed_runs_bitwise_equal": same_baskets(r4_any, r1_any)})
     check(same_baskets(r4, r1) and r4_info == r1_info, "7b: D=4 differs from D=1 on Eat")
+    check(same_baskets(r4_any, r1_any) and same_baskets(r1_any, r1),
+          "7b: the timed ring runs differ in bits")
     return [launches, launches4], r1
 
 
 def ring_scale(big, smi: str) -> list:
     """Phase 7c: two half-sweeps (tol -1) on phase 3's 1M-node graph at D=1
-    and D=4 virtual shards, under deterministic kernels: bitwise equal;
+    and D=4 virtual shards: bitwise equal;
     the flat hub rows (wider than the kernel, so through the sort
     pipeline); walls and peak memory against the full basket."""
     from approximated_personalized_pagerank_tpu_torch import make_mesh
@@ -1108,16 +1103,15 @@ def ring_scale(big, smi: str) -> list:
     out, all_launches = {}, []
     for d in (1, 4):
         clear_counts()
-        with deterministic():
-            (b, info), wall = timed(lambda: ring_grank_baskets(
-                big, K, L, 2, DAMPING, -1.0, mesh=make_mesh(d, [card] * d),
-                analyze_memory=True))
+        (b, info), wall = timed(lambda: ring_grank_baskets(
+            big, K, L, 2, DAMPING, -1.0, mesh=make_mesh(d, [card] * d),
+            analyze_memory=True))
         all_launches.append(read_counts())
         out[d] = b
         mem = info["memory"]
         emit_ring(f"c: ring D={d} at 1M nodes", smi, {
             "graph": "powerlaw(1e6, 1e7, seed=7, locality=0.8)", "half_sweeps": 2,
-            "deterministic_kernels": True, "wall_s": wall,
+            "wall_s": wall,
             "iterations_ran": info["iterations_ran"], "rounds": ring_rounds(big, d, L, (0, 1)),
             "flat_hub_rows_through_sort": flat, "shard_bytes_planned": mem["shard_bytes"],
             "full_basket_bytes": mem["full_basket_bytes"],
@@ -1132,8 +1126,8 @@ def ring_scale(big, smi: str) -> list:
 
 def ring_mc(eat, smi: str) -> list:
     """Phase 7d: Eat MC (K=50, L=200, R=1000, seed 1) through
-    ``mccompletepathv2_multi_baskets`` on 2 virtual shards, under
-    deterministic kernels: bitwise equal to the D=1 ring combine of the
+    ``mccompletepathv2_multi_baskets`` on 2 virtual shards: bitwise equal
+    to the D=1 ring combine of the
     unsharded walks; the sharded walks bitwise equal to the unsharded ones
     at the same chunk size; quality.  Returns the call's launches."""
     from approximated_personalized_pagerank_tpu_torch import (
@@ -1152,17 +1146,14 @@ def ring_mc(eat, smi: str) -> list:
     check(tw._sharded_trace_chunks(eat.num_nodes, MC_R, DAMPING, None, None, MC_UNROLL, 2)[0]
           == chunk, "7d: the sharded and unsharded walk chunks differ on Eat")
     clear_counts()
-    with deterministic():
-        multi, wall = timed(lambda: mccompletepathv2_multi_baskets(
-            eat, MC_K, MC_L, MC_R, DAMPING, 2, seed=1, devices=[card] * 2))
+    multi, wall = timed(lambda: mccompletepathv2_multi_baskets(
+        eat, MC_K, MC_L, MC_R, DAMPING, 2, seed=1, devices=[card] * 2))
     launches = read_counts()
     (w2, w2_info), w2_s = timed(lambda: walk_baskets(eat, MC_L, MC_R, DAMPING, seed=1,
                                                      mesh=mesh2, return_info=True))
     (w1, w1_info), w1_s = timed(lambda: walk_baskets(eat, MC_L, MC_R, DAMPING, seed=1,
                                                      return_info=True))
-    with deterministic():
-        one, one_s = timed(lambda: ring_mc_combine(eat, w1, MC_K, MC_L, DAMPING, 2,
-                                                   mesh=mesh1))
+    one, one_s = timed(lambda: ring_mc_combine(eat, w1, MC_K, MC_L, DAMPING, 2, mesh=mesh1))
     (q,) = benchmark_sampled([sample_result(multi, eat, 200, True, seed=0)], eat, mesh=mesh2)
     emit_ring("d: MC on Eat, 2 virtual shards", smi, {
         "K": MC_K, "L": MC_L, "R": MC_R, "walk_chunk": chunk, "wall_s": wall,
@@ -1198,7 +1189,7 @@ def ring_oracle(eat, smi: str) -> None:
 
 def ring_nccl(eat, d1, smi: str) -> list:
     """Phase 7f: the process-group path at world size 1 over NCCL: the ring
-    on Eat (deterministic kernels) equal to 7a's, its convergence max
+    on Eat equal to 7a's, its convergence max
     through ``all_reduce`` once a half-sweep.  Returns its launches."""
     import socket
 
@@ -1218,9 +1209,8 @@ def ring_nccl(eat, d1, smi: str) -> list:
         check(mesh.group is not None and mesh.n_shards == 1, "7f: no process-group mesh")
         backend = dist.get_backend(mesh.group)
         clear_counts()
-        with deterministic():
-            (out, info), wall = timed(lambda: grank_baskets(
-                eat, K, L, ITERS, DAMPING, TOL, mesh=mesh, return_info=True))
+        (out, info), wall = timed(lambda: grank_baskets(
+            eat, K, L, ITERS, DAMPING, TOL, mesh=mesh, return_info=True))
         launches = read_counts()
     finally:
         dist.destroy_process_group()
@@ -1235,7 +1225,7 @@ def ring_nccl(eat, d1, smi: str) -> list:
 
 def ring_cli(smi: str) -> None:
     """Phase 7g: ``ppr-torch --algorithm grank_multi --n-shards 1`` saves
-    baskets equal to a direct call (deterministic kernels); with one card
+    baskets equal to a direct call; with one card
     ``--n-shards 2`` raises "exceeds available devices"."""
     import io
     import os
@@ -1252,7 +1242,7 @@ def ring_cli(smi: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "cli_ring_baskets.npz")
     args = ["--algorithm", "grank_multi", "--no-eval", "--save", path]
-    with deterministic(), contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()):
         rc, cli_s = timed(lambda: cli_main(args + ["--n-shards", "1"]))
         direct = grank_multi_baskets(load_csv_graph(sample_graph_path()), K, L, ITERS, DAMPING,
                                      TOL, 1)
@@ -1273,6 +1263,45 @@ def ring_cli(smi: str) -> None:
         "n_shards=2 exceeds available devices (1)"), "7g: --n-shards 2 did not raise on one card")
 
 
+def run_sums_repeat(smi: str) -> None:
+    """Phase 7h: the sort pipeline of ``_merge_rows`` (rows of 16,384
+    candidates, wider than the kernel, and rows of 201, narrower than the
+    network width), ``merge_topl_plain`` and ``norm1_rows`` run three times
+    each on one card input with runs of three or more equal ids: identical
+    bits every time, with no deterministic mode (the run sums are a
+    segmented scan of elementwise ops, ops/basket.py::run_sums)."""
+    from approximated_personalized_pagerank_tpu_torch.ops import basket as tb
+    from approximated_personalized_pagerank_tpu_torch.ops import merge as tm
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for w, id_hi in ((16384, 300), (201, 20)):
+        ids_np = rng.integers(0, id_hi, (512, w)).astype(np.int32)
+        ids_np[rng.random((512, w)) < 0.2] = -1
+        sc_np = np.where(ids_np >= 0, rng.random((512, w)) / w, 0).astype(np.float32)
+        ids, sc = torch.as_tensor(ids_np, device="cuda"), torch.as_tensor(sc_np, device="cuda")
+        longest = int(torch.unique_consecutive(torch.sort(ids[0]).values,
+                                               return_counts=True)[1][1:].max())
+        merged = [tm._merge_rows(ids, sc, L, "kernel") for _ in range(3)]
+        half = len(merged[0].ids) // 2
+        a = tb.Baskets(merged[0].ids[:half], merged[0].scores[:half])
+        b = tb.Baskets(merged[0].ids[half:], merged[0].scores[half:])
+        l1 = [tb.norm1_rows(a, b) for _ in range(3)]
+        pw = min(mk.next_pow2(w), mk.MAX_KERNEL_WIDTH)
+        p_ids = torch.where(ids[:, :pw] < 0, mk.PAD_ID, ids[:, :pw])
+        plain = [mk.merge_topl_plain(p_ids, sc[:, :pw], 128) for _ in range(3)]
+        same = (all(same_baskets(m, merged[0]) for m in merged)
+                and all(torch.equal(x.view(torch.int32), l1[0].view(torch.int32)) for x in l1)
+                and all(same_bits(x, plain[0]) for x in plain))
+        out[f"W{w}"] = {"rows": 512, "longest_live_run": longest, "repeats": 3,
+                        "sort_pipeline": not tm._takes_kernel("kernel", w),
+                        "identical_bits": same}
+        check(longest >= 3, f"7h: W={w} has no run of three equal ids")
+        check(same, f"7h: W={w}: repeated run sums differ in bits")
+    emit_ring("h: run sums repeat bitwise", smi, out)
+
+
 def phase_ring(big, smi: str) -> list:
     """Phase 7: the sharded paths (7a-7g), and its wall.  D > 1 runs as
     virtual shards on the one card.  Returns the main path runs' launches."""
@@ -1286,9 +1315,183 @@ def phase_ring(big, smi: str) -> list:
     ring_oracle(eat, smi)
     runs += ring_nccl(eat, d1, smi)
     ring_cli(smi)
+    run_sums_repeat(smi)
     emit_ring("all", smi, {"wall_s": time.perf_counter() - t0})
     check(all(sum(r["fused_merge_topl"].values()) > 0 for r in runs),
           "a ring run launched no matrix entry")
+    return runs
+
+
+def emit_examples(part: str, smi: str, obj: dict) -> None:
+    emit({"phase": 8, "part": part, "nvidia_smi": smi, **obj})
+
+
+def load_example(name: str):
+    """An example driver of the port (examples/<name>.py) as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def native_loader(big, smi: str) -> None:
+    """Phase 8a: the native loader built from the port's own source; its
+    parse of Eat (decompressed to a plain file) and its 2-colouring of Eat
+    and of phase 3's 1M-node graph byte-equal to the numpy versions, each
+    colouring timed on both paths (the CSC built beforehand)."""
+    import gzip
+    import os
+
+    from approximated_personalized_pagerank_tpu_torch import eat_graph_path, load_csv_graph
+    from approximated_personalized_pagerank_tpu_torch.utils import io as tio
+
+    t0 = time.perf_counter()
+    check(tio.native_available(), "8a: the native loader did not build")
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "eat.csv")
+    with gzip.open(eat_graph_path(), "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data)
+    (src, dst), parse_s = timed(lambda: tio.parse_edge_csv(path))
+    parser = tio.paths_ran()["parse_edge_csv"]
+    ref_src, ref_dst = tio._parse_bytes(data, path)
+    parse_equal = src.tobytes() == ref_src.tobytes() and dst.tobytes() == ref_dst.tobytes()
+    graph = load_csv_graph(path)
+    colour, colour_s = timed(lambda: graph.partition)
+    colourer = tio.paths_ran()["bfs_bipartition"]
+    plain, plain_s = timed(graph._bfs_bipartition)
+    csc = big.csc
+    big_native, big_native_s = timed(lambda: tio.native_bfs_bipartition(
+        big.indptr, big.indices, *csc))
+    big_plain, big_plain_s = timed(big._bfs_bipartition)
+    big_equal = big_native.tobytes() == big_plain.tobytes()
+    emit_examples("a: the native loader on Eat", smi, {
+        "library_build_s": build_s, "parser": parser, "parse_s": parse_s, "edges": int(src.size),
+        "parse_byte_equal_to_numpy": parse_equal, "colouring": colourer,
+        "colouring_s": colour_s, "numpy_colouring_s": plain_s,
+        "colouring_byte_equal_to_numpy": colour.tobytes() == plain.tobytes(),
+        "1M_colouring_s": big_native_s, "1M_numpy_colouring_s": big_plain_s,
+        "1M_colouring_byte_equal_to_numpy": big_equal})
+    check(parser == "native" and colourer == "native", "8a: a numpy path ran, not the native one")
+    check(parse_equal, "8a: the native parse of Eat differs from numpy's")
+    check(colour.tobytes() == plain.tobytes(), "8a: the native colouring of Eat differs")
+    check(big_equal, "8a: the native colouring of the 1M graph differs")
+
+
+def example_eat(smi: str) -> dict:
+    """Phase 8b: examples/run_eat_torch.py at full Eat scale (GRank 30
+    half-sweeps, MC R=1000, 200 strict sources).  Returns its launches."""
+    mod = load_example("run_eat_torch")
+    printed = []
+    clear_counts()
+    res, wall = timed(lambda: mod.run_eat(device="cuda", out=printed.append))
+    launches = read_counts()
+    g, m = res["grank"], res["mccompletepathv2"]
+    emit_examples("b: run_eat_torch on Eat", smi, {
+        "wall_s": wall, "grank": g, "mccompletepathv2": m,
+        "kernel_launches": launches_json(launches), "printed": printed})
+    check(g["jaccard average"] >= 0.90 and g["recall average"] >= 0.94,
+          "8b: run_eat's GRank quality is below phase 2's bounds")
+    check(m["jaccard average"] >= 0.94, "8b: run_eat's MC jaccard_average < 0.94")
+    return launches
+
+
+def example_synthetic(smi: str) -> dict:
+    """Phase 8c: examples/run_synthetic_torch.py at 200,000 nodes and 2M
+    edges (its default is 1M / 10M, which phases 3 and 5 cover)."""
+    mod = load_example("run_synthetic_torch")
+    clear_counts()
+    res, wall = timed(lambda: mod.run_synthetic(200_000, 2_000_000, 4, device="cuda",
+                                                out=lambda *_: None))
+    launches = read_counts()
+    emit_examples("c: run_synthetic_torch, 200k nodes", smi, {
+        "wall_s": wall, **res, "kernel_launches": launches_json(launches)})
+    check(res["half_sweeps"] == 4 and res["merges_per_s"] > 0, "8c: no half-sweeps")
+    check(res["abandoned_walks"] <= 0.01 * res["total_walks"], "8c: over 1% of walks abandoned")
+    return launches
+
+
+def example_sharded(smi: str) -> dict:
+    """Phase 8d: examples/run_sharded_torch.py on 4 virtual shards at
+    100,000 nodes (its default size; 8 shards there)."""
+    mod = load_example("run_sharded_torch")
+    clear_counts()
+    res, wall = timed(lambda: mod.run_sharded(4, 100_000, 1_000_000, device="cuda",
+                                              out=lambda *_: None))
+    launches = read_counts()
+    baskets, mc = res.pop("baskets"), res.pop("mc")
+    emit_examples("d: run_sharded_torch, 4 virtual shards", smi, {
+        "wall_s": wall, **res, "kernel_launches": launches_json(launches)})
+    check(bool(torch.isfinite(baskets.scores).all()) and bool(torch.isfinite(mc.scores).all()),
+          "8d: non-finite sharded scores")
+    check(res["non_empty_baskets"] == 100_000, "8d: empty ring baskets")
+    return launches
+
+
+def example_bench_ring(smi: str) -> dict:
+    """Phase 8e: examples/bench_ring_torch.py at D = 1, 2, 4, 8 virtual
+    shards, 100,000 nodes, 2 half-sweeps (its default: 200,000, 4)."""
+    mod = load_example("bench_ring_torch")
+    printed = []
+    clear_counts()
+    rows, wall = timed(lambda: mod.bench_ring(100_000, 1_000_000, 2, device="cuda",
+                                              out=printed.append))
+    launches = read_counts()
+    emit_examples("e: bench_ring_torch, virtual shards", smi, {
+        "wall_s": wall, "rows": rows, "note": mod.NOTE,
+        "kernel_launches": launches_json(launches)})
+    check([r["shards"] for r in rows] == [1, 2, 4, 8], "8e: missing shard counts")
+    check(all(r["iterations_ran"] == 2 for r in rows), "8e: a ring did not run 2 half-sweeps")
+    return launches
+
+
+def north_star(smi: str) -> dict:
+    """Phase 8f: the north star, examples/run_scale_torch.py::run_scale at
+    full size (4.8M nodes, 69M edges, locality 0.8; GRank K=50, L=100, 30
+    half-sweeps, tol 1e-4; MC mc_l=100, R=200; 32 strict sources), each
+    stage's line forwarded as it ends.  Held to the TPU run on the same
+    graph up to tie noise.  Returns its launches."""
+    mod = load_example("run_scale_torch")
+    stages = {}
+
+    def forward(line: str) -> None:
+        stage = json.loads(line)
+        stages[stage["stage"]] = stage
+        emit_examples("f: north star stage", smi, stage)
+
+    clear_counts()
+    out, wall = timed(lambda: mod.run_scale(test_nodes=32, log=forward, device="cuda"))
+    launches = read_counts()
+    emit_examples("f: north star", smi, {
+        "wall_s": wall, **out, "peak_allocated_bytes": {
+            k: v["peak_allocated_bytes"] for k, v in stages.items()},
+        "kernel_launches": launches_json(launches)})
+    check((out["scale_full_nodes"], out["scale_full_edges"]) == (4_800_000, 69_000_000),
+          "8f: the north star ran below full size")
+    check(out["scale_full_iterations"] >= 1, "8f: GRank ran no half-sweep")
+    check(stages["prep"]["native_partition"], "8f: the 2-colouring did not run natively")
+    check(out["scale_full_jaccard"] >= 0.966, "8f: GRank jaccard < 0.966")
+    check(out["scale_full_recall"] >= 0.978, "8f: GRank recall < 0.978")
+    check(out["scale_full_mc_jaccard"] >= 0.930, "8f: MC jaccard < 0.930")
+    check(out["scale_full_mc_abandoned_frac"] <= 0.01, "8f: over 1% of MC walks abandoned")
+    return launches
+
+
+def phase_examples(big, smi: str) -> list:
+    """Phase 8: the native loader and the example drivers on the card, the
+    north star last.  Returns the drivers' launches."""
+    t0 = time.perf_counter()
+    native_loader(big, smi)
+    runs = [example_eat(smi), example_synthetic(smi), example_sharded(smi),
+            example_bench_ring(smi), north_star(smi)]
+    emit_examples("all", smi, {"wall_s": time.perf_counter() - t0})
     return runs
 
 
@@ -1304,10 +1507,11 @@ def main() -> int:
     walk_launches = phase_walk_scale(big)
     dense_launches = phase_dense(smi)
     ring_launches = phase_ring(big, smi)
+    example_launches = phase_examples(big, smi)
     del big
     # the main paths' runs
     runs = [eat_launches, scale_launches, mc_launches, walk_launches, dense_launches,
-            *ring_launches]
+            *ring_launches, *example_launches]
     launches = {k: sum(sum(r[k].values()) for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")
