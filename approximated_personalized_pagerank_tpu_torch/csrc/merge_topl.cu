@@ -65,6 +65,46 @@
 //     descending by score, ties by ascending id.  Slots past the live count
 //     are written as (-1, 0).
 //
+// The gather entry's rows of 8192 sort by run (rows below 8192, and the
+// matrix entry, keep steps 1-2 above).  The gather entry replaces the same
+// TPU kernel with the gather that fed it, _bucket_candidates
+// (approximated_personalized_pagerank_tpu/ops/merge.py:188).  A row is D
+// runs, one successor's basket row of Lb keys each, and the self entry, a
+// run of one.  Its bound is the same byte floor (the successor matrix, the
+// basket rows read once and the output: 6.5 us for Eat's widest bucket);
+// the network spends its instructions on dead slots (absent successors, -1
+// tails, the power-of-two padding) and on sorting across keys of one run.
+// The run merge (merge_kernel<16, true, true>):
+//
+//  a. Load by run.  A warp takes one successor at a time: its basket row is
+//     read once, coalesced (slot e*32 + lane to key[e]), succ once a run.
+//     Keys are packed as above, so every comparison, the summation order and
+//     the output are bitwise the network's.
+//  b. Sort each run inside its warp (sort_keys over next_pow2(Lb) keys,
+//     Lb <= 512: at most 16 keys a lane, no block barrier) and write only its
+//     live prefix; a warp scan of the live counts places the runs.
+//  c. Merge the runs pairwise, ceil(log2(runs)) levels.  Each thread emits
+//     outputs t*E .. t*E+E-1 of a level from a merge-path split (a binary
+//     search on the diagonal, then one step a key); a level reads every key
+//     into registers before a barrier and writes after it, so one buffer of
+//     n keys (64 KB at 8192) suffices and two blocks share an SM.  The last
+//     level's outputs stay in registers as step 3's input: the network's
+//     sorted row without its dead slots.
+//  d. Steps 3-4 as above; warps whose keys are all past the live count skip
+//     the radix select's per-key work, as do digit passes no key of a warp
+//     is in.
+//
+// Rows with Lb > 512 (D <= 16) or more than 512 runs keep the block network.
+// Measured on an H100 (chip_smoke.py phases 1-4, PERF.md section 6): a merge
+// step is a dependent shared-memory load and the binary searches add more,
+// so the levels cost about what the network's cross-run stages do.  At 8192
+// the run merge is a few percent faster than the network on real basket
+// state; at 4096 and below it was slower (about 20% at 4096), hence the
+// width it is launched at.  Sorting runs of 16 keys a lane in groups of
+// lanes, and merging each thread's outputs through a register network,
+// spilled under the 64-register cap and were slower; so was one block per
+// SM; sorting only the span up to a run's last live slot gained nothing.
+//
 // Registers: E=16 keys are 32 registers; __launch_bounds__(512, 2) keeps two
 // 512-thread blocks (W=8192) on an SM, each with 68 KB of dynamic shared
 // memory, above the 48 KB static limit, hence cudaFuncSetAttribute below.
@@ -284,6 +324,212 @@ struct Gather {
   const float* self_scores;   // [C] or null
 };
 
+// The run merge takes rows of kRunMergeWidth (below it the network is faster
+// on the card: PERF.md section 6) of at most kMaxRuns runs (successors and
+// the self entry) of at most kMaxRunWidth keys each.
+constexpr int kRunMergeWidth = kMaxWidth;
+constexpr int kMaxRuns = 512;
+constexpr int kMaxRunWidth = 512;
+
+// One warp loads basket row s (lb slots, slot e*32 + lane to key[e]:
+// coalesced), sorts it ascending in registers and shuffles, writes its live
+// prefix to sm[pad_idx(base + i)], and returns the live count.  Dead keys
+// sort last, so the live keys are a prefix.
+template <int EW>
+__device__ __forceinline__ int sort_run(const Gather& g, long long s, float sc,
+                                        int lane, uint64_t* sm, int base) {
+  const int lb = g.lb;
+  const int* ids = g.basket_ids + s * lb;
+  const float* scs = g.basket_scores + s * lb;
+  uint64_t key[EW];
+#pragma unroll
+  for (int e = 0; e < EW; ++e) {
+    const int p = e * 32 + lane;
+    const int id = p < lb ? ids[p] : -1;
+    key[e] = id >= 0 ? pack(id, scs[p] * sc) : kDeadKey;
+  }
+  sort_keys<EW>(key, lane, 32 * EW, sm);  // one warp: sm is not touched
+  int live = 0;
+#pragma unroll
+  for (int e = 0; e < EW; ++e) live += key[e] != kDeadKey ? 1 : 0;
+  live = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(live)));
+#pragma unroll
+  for (int e = 0; e < EW; ++e) {
+    const int i = lane * EW + e;
+    if (i < live) sm[pad_idx(base + i)] = key[e];
+  }
+  return live;
+}
+
+// Merge-path split of the merge of sorted A[0, la) and B[0, lb) (ties from
+// A first): how many of the first k outputs come from A.
+__device__ __forceinline__ int merge_split(const uint64_t* sm, int a0, int la,
+                                           int b0, int lb, int k) {
+  int lo = k > lb ? k - lb : 0;
+  int hi = k < la ? k : la;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sm[pad_idx(a0 + mid)] <= sm[pad_idx(b0 + k - 1 - mid)])
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The runs of one merge level: pair p merges the runs of input groups 2p and
+// 2p+1, each `s` original runs wide; cum[r] is the live count of original
+// runs below r, so a group [r0, r1) holds cum[r1] - cum[r0] keys and writes
+// its merged output to [cum[r0], cum[r1]).  Level 0 reads run r at r*lb.
+struct Pair {
+  int a0, la, b0, lb, end;
+};
+
+__device__ __forceinline__ Pair level_pair(const int* cum, int n_runs, int s,
+                                           bool first, int lb, int p) {
+  const int ra = min(2 * s * p, n_runs), rb = min(ra + s, n_runs),
+            rc = min(rb + s, n_runs);
+  Pair q;
+  q.a0 = first ? ra * lb : cum[ra];
+  q.b0 = first ? rb * lb : cum[rb];
+  q.la = cum[rb] - cum[ra];
+  q.lb = cum[rc] - cum[rb];
+  q.end = cum[rc];
+  return q;
+}
+
+// The gather entry's steps 1-2 by run: row `row`'s sorted live candidates,
+// element t*E + e in key[e] (kDeadKey past the live count), as the network
+// of sort_keys would leave them.  Warps sort one run each (a successor's
+// basket row, or the self entry), the live counts are scanned into cum, and
+// ceil(log2(runs)) levels of pairwise merges follow, each thread emitting
+// outputs t*E .. t*E+E-1 of a level from a merge-path split.  A level reads
+// every key before any is written (registers, then a barrier), so it merges
+// in place; the last level's outputs stay in registers.  Returns the live
+// count.
+template <int E>
+__device__ __forceinline__ int gather_by_run(const Gather& g, long long row,
+                                              int t, int nt, uint64_t* sm,
+                                              int* cum, uint64_t (&key)[E]) {
+  const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
+  const int n_runs = g.d + (g.self_scores != nullptr ? 1 : 0);
+  const float sc = g.scale[row];
+  const long long* succ = g.succ + row * g.d;
+  int ew = 1;
+  while (32 * ew < g.lb) ew <<= 1;
+  for (int r = warp; r < n_runs; r += nw) {
+    int live = 0;
+    if (r < g.d) {
+      const long long s = succ[r];
+      if (s >= g.n_basket) __trap();  // an out-of-range successor
+      if (s >= 0) {
+        const int base = r * g.lb;
+        switch (ew) {
+          case 1: live = sort_run<1>(g, s, sc, lane, sm, base); break;
+          case 2: live = sort_run<2>(g, s, sc, lane, sm, base); break;
+          case 4: live = sort_run<4>(g, s, sc, lane, sm, base); break;
+          case 8: live = sort_run<8>(g, s, sc, lane, sm, base); break;
+          default: live = sort_run<16>(g, s, sc, lane, sm, base); break;
+        }
+      }
+    } else {  // the self entry, a run of one
+      const uint64_t k = pack(static_cast<int>(g.rows[row]), g.self_scores[row]);
+      live = k != kDeadKey ? 1 : 0;
+      if (lane == 0) sm[pad_idx(r * g.lb)] = k;
+    }
+    if (lane == 0) cum[r + 1] = live;
+  }
+  if (t == 0) cum[0] = 0;
+  __syncthreads();
+  if (warp == 0) {  // inclusive scan of cum[1 .. n_runs]
+    const int per = (n_runs + 31) / 32;
+    const int lo = 1 + lane * per;
+    const int hi = min(lo + per, n_runs + 1);
+    int own = 0;
+    for (int i = lo; i < hi; ++i) own += cum[i];
+    int x = own;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
+    }
+    int run = x - own;
+    for (int i = lo; i < hi; ++i) {
+      run += cum[i];
+      cum[i] = run;
+    }
+  }
+  __syncthreads();
+  const int total = cum[n_runs];
+  const int q0 = t * E;
+  int levels = 0;
+  while ((1 << levels) < n_runs) ++levels;
+  if (levels == 0) {  // one run: it lies at 0 already
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      key[e] = q0 + e < total ? sm[pad_idx(q0 + e)] : kDeadKey;
+  }
+  for (int lv = 0; lv < levels; ++lv) {
+    const int s = 1 << lv;
+    const bool first = lv == 0;
+    const int n_pairs = (n_runs + 2 * s - 1) / (2 * s);
+    if (q0 < total) {
+      // the last pair whose output starts at or before q0: it holds q0
+      int lo = 0, hi = n_pairs - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (cum[min(2 * s * mid, n_runs)] <= q0)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      int p = lo;
+      Pair q = level_pair(cum, n_runs, s, first, g.lb, p);
+      const int start = q.end - q.la - q.lb;
+      int i = merge_split(sm, q.a0, q.la, q.b0, q.lb, q0 - start);
+      int j = q0 - start - i;
+      uint64_t va = i < q.la ? sm[pad_idx(q.a0 + i)] : kEmptyKey;
+      uint64_t vb = j < q.lb ? sm[pad_idx(q.b0 + j)] : kEmptyKey;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int pos = q0 + e;
+        uint64_t out = kDeadKey;
+        if (pos < total) {
+          while (pos >= q.end) {  // the next pair starts at its diagonal 0
+            q = level_pair(cum, n_runs, s, first, g.lb, ++p);
+            i = 0;
+            j = 0;
+            va = q.la > 0 ? sm[pad_idx(q.a0)] : kEmptyKey;
+            vb = q.lb > 0 ? sm[pad_idx(q.b0)] : kEmptyKey;
+          }
+          if (va <= vb) {
+            out = va;
+            ++i;
+            va = i < q.la ? sm[pad_idx(q.a0 + i)] : kEmptyKey;
+          } else {
+            out = vb;
+            ++j;
+            vb = j < q.lb ? sm[pad_idx(q.b0 + j)] : kEmptyKey;
+          }
+        }
+        key[e] = out;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) key[e] = kDeadKey;
+    }
+    if (lv + 1 < levels) {
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (q0 + e < total) sm[pad_idx(q0 + e)] = key[e];
+      __syncthreads();
+    }
+  }
+  __syncthreads();  // every read of sm is done before step 3 writes it
+  return total;
+}
+
 // Threads of the widest row a kernel with E keys a thread sorts: E=16 for
 // rows of 4096 and 8192, E=8 below.
 template <int E>
@@ -291,7 +537,9 @@ constexpr int max_threads() {
   return E == 8 ? 2048 / 8 : kMaxWidth / E;
 }
 
-template <int E, bool kGather>
+// kByRun: the gather entry's run merge (steps a-d of the note), its own
+// instantiation, so the network kernels keep their registers.
+template <int E, bool kGather, bool kByRun = false>
 __global__ void __launch_bounds__(max_threads<E>(), 2)
     merge_kernel(const int* __restrict__ in_ids,
                  const float* __restrict__ in_scores, int width, Gather g,
@@ -301,6 +549,7 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   __shared__ unsigned hist[256];
   __shared__ unsigned ws[33];
   __shared__ unsigned sel[3];  // prefix, need, all-live flag
+  __shared__ int cum[kByRun ? kMaxRuns + 1 : 1];
 
   const int t = threadIdx.x;
   const int nt = blockDim.x;
@@ -308,9 +557,13 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   const int lane = t & 31;
   const long long row = blockIdx.x;
 
-  // 1. load, slot e*nt + t to thread t
+  // 1-2. load and sort by id: by run, or slot e*nt + t to thread t, then
+  //      one network over the row
   uint64_t key[E];
-  if constexpr (kGather) {
+  int live_n = n;  // keys t*E + e at or past live_n are dead
+  if constexpr (kByRun) {
+    live_n = gather_by_run<E>(g, row, t, nt, sm, cum, key);
+  } else if constexpr (kGather) {
     const float sc = g.scale[row];
     const int w_real = g.d * g.lb;
     const long long* succ = g.succ + row * g.d;
@@ -341,9 +594,10 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
       key[e] = i < width ? pack(ids[i], scs[i]) : kDeadKey;
     }
   }
-
-  // 2. sort by id
-  sort_keys<E>(key, t, n, sm);
+  if constexpr (!kByRun) sort_keys<E>(key, t, n, sm);
+  // the run merge skips per-key work in warps that hold only dead keys, and
+  // digit passes that no key of the warp is in
+  const bool warp_dead = kByRun && (t & ~31) * E >= live_n;
 
   // 3. run sums: a live run start sums its run forward; the rest is dead (0)
 #pragma unroll
@@ -387,7 +641,9 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
     const uint32_t mask = pass == 0 ? 0u : (0xffffffffu << (shift + 8));
 #pragma unroll
     for (int e = 0; e < E; ++e) {
+      if (warp_dead) break;
       const bool in = tot[e] != 0 && (tot[e] & mask) == prefix;
+      if (kByRun && pass > 0 && !__any_sync(kFull, in)) continue;
       const unsigned dg = in ? (tot[e] >> shift) & 0xffu : 256u;
       const unsigned peers = __match_any_sync(kFull, dg);
       if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[dg], __popc(peers));
@@ -500,27 +756,32 @@ int next_pow2(int x) {
   return p;
 }
 
-template <int E, bool kGather>
+template <int E, bool kGather, bool kByRun = false>
 int launch(int rows, int n, const int* ids, const float* scores, int width,
            const Gather& g, const float* post_scale, int* out_ids,
            float* out_scores, int out_width, int l_pad, cudaStream_t stream) {
   const int smem = padded_words(n) * static_cast<int>(sizeof(uint64_t));
   cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel<E, kGather>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      merge_kernel<E, kGather, kByRun>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<E, kGather><<<rows, n / E, smem, stream>>>(
+  merge_kernel<E, kGather, kByRun><<<rows, n / E, smem, stream>>>(
       ids, scores, width, g, post_scale, out_ids, out_scores, out_width, l_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
 // n: the row's sort width, a power of two in [256, 8192].  E=16 keys a thread
 // from 4096 up (256 and 512 threads), E=8 below (32 to 256 threads).
+// by_run: the gather entry's run merge (n == kRunMergeWidth).
 template <bool kGather>
 int dispatch(int rows, int n, const int* ids, const float* scores, int width,
              const Gather& g, const float* post_scale, int* out_ids,
-             float* out_scores, int out_width, int l_pad, void* stream) {
+             float* out_scores, int out_width, int l_pad, void* stream,
+             bool by_run = false) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (by_run)
+    return launch<16, true, true>(rows, n, ids, scores, width, g, post_scale,
+                                  out_ids, out_scores, out_width, l_pad, st);
   if (n >= 4096)
     return launch<16, kGather>(rows, n, ids, scores, width, g, post_scale,
                                out_ids, out_scores, out_width, l_pad, st);
@@ -567,10 +828,13 @@ int ppr_gather_merge_topl(const int* basket_ids, const float* basket_scores,
   int n = next_pow2(static_cast<int>(w));
   if (n < l_pad) n = l_pad;
   if (n < kMinSortWidth) n = kMinSortWidth;
+  const int n_runs = d + (self_scores ? 1 : 0);
+  const bool by_run =
+      n == kRunMergeWidth && lb <= kMaxRunWidth && n_runs <= kMaxRuns;
   Gather g{basket_ids, basket_scores, n_basket, lb, succ, d, row_ids, scale,
            self_scores};
   return dispatch<true>(rows, n, nullptr, nullptr, 0, g, post_scale, out_ids,
-                        out_scores, out_width, l_pad, stream);
+                        out_scores, out_width, l_pad, stream, by_run);
 }
 
 const char* ppr_cuda_error_string(int code) {

@@ -14,8 +14,10 @@ The reference's hash-map primitives become row-wise tensor ops:
 * ``norm1``  (include/internal/pprInternal.h:148-165)   -> :func:`norm1_rows`
 * ``jaccard``(include/internal/pprInternal.h:174-186)   -> :func:`jaccard_rows`
 
-Ties in ``keep_top`` are broken arbitrarily, like ``std::nth_element`` in
-the reference.
+``keep_top`` cuts ties as ``jax.lax.top_k`` does in the JAX package: equal
+scores go to the lower column, which on rows sorted by id is the smaller id.
+(The reference's ``std::nth_element`` leaves ties arbitrary; the port keeps
+the JAX package's rule so that both packages keep the same ids.)
 """
 
 from __future__ import annotations
@@ -112,20 +114,36 @@ def combine_sorted_runs(
     return out_ids, out_scores
 
 
+_DEAD_KEY = torch.iinfo(torch.int64).min
+
+
+def _top_order_key(scores: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """int64 keys, distinct within a row, whose descending order is
+    ``jax.lax.top_k``'s: descending score, equal scores by ascending column,
+    dead slots last.  The high half maps the f32 bits order-preservingly to
+    a signed int; the low half is ~column."""
+    bits = scores.contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    col = torch.arange(scores.shape[-1], dtype=torch.int64, device=scores.device)
+    key = (ordered << 32) | (0xFFFFFFFF - col)
+    return torch.where(live, key, torch.full_like(key, _DEAD_KEY))
+
+
 def keep_top(ids: torch.Tensor, scores: torch.Tensor, k: int) -> Baskets:
-    """Row-wise top-k by score over live entries; ties arbitrary.
+    """Row-wise top-k by score over live entries, equal scores by ascending
+    column (``jax.lax.top_k``'s rule, deterministic on every device).
 
     Matches ``keepTop`` (include/internal/pprInternal.h:110-137): a row with
     fewer than ``k`` live entries is padded with sentinels.  Output width is
     exactly ``k``, rows ordered by descending score.
     """
     w = ids.shape[-1]
-    key = torch.where(ids >= 0, scores, torch.full_like(scores, NEG_INF))
+    key = _top_order_key(scores, ids >= 0)
     kk = min(k, w)
     top_key, top_pos = torch.topk(key, kk, dim=-1, largest=True, sorted=True)
     out_ids = torch.gather(ids, -1, top_pos)
     out_scores = torch.gather(scores, -1, top_pos)
-    live = top_key > NEG_INF
+    live = top_key != _DEAD_KEY
     out_ids = torch.where(live, out_ids, torch.full_like(out_ids, SENTINEL))
     out_scores = torch.where(live, out_scores, torch.zeros_like(out_scores))
     if k > w:

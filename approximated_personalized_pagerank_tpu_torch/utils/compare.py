@@ -8,6 +8,8 @@ last bits.  :func:`topl_max_error` accepts exactly those differences.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 
@@ -60,3 +62,14 @@ def topl_max_error(a_ids, a_scores, b_ids, b_scores, atol: float) -> float:
         if err > atol:
             raise ToplMismatch(f"row {r}: score error {err} > {atol}")
     return err
+
+
+def basket_sha256(baskets) -> str:
+    """sha256 of a basket set's bits: the ids' int32 bytes, then the
+    scores' float32 bits, row-major.  Two runs that agree bit for bit give
+    one digest."""
+    ids = np.ascontiguousarray(baskets.ids.cpu().numpy(), dtype=np.int32)
+    bits = np.ascontiguousarray(baskets.scores.cpu().numpy(), dtype=np.float32).view(np.int32)
+    h = hashlib.sha256(ids.tobytes())
+    h.update(bits.tobytes())
+    return h.hexdigest()

@@ -11,9 +11,10 @@ a row's candidates, and times them.  Then it drives the port's main paths,
 counting each entry's launches in each:
 
 * phase 2: sparse GRank on the bundled Eat graph, scored against the exact
-  oracle;
+  oracle, with the gather entry held and timed on the warm-up's real
+  basket state (the widest bucket);
 * phase 3: two GRank half-sweeps on a 1M-node power-law graph that takes
-  the hub path;
+  the hub path, and the gather entry on that graph's real basket state;
 * phase 4: MCCompletePathV2 on Eat (K=50, L=200, R=1000), scored against
   the oracle beside the sort pipeline, with the walks' checks (one chunk's
   trace bitwise equal on the card and the CPU, threefry bits equal on
@@ -38,6 +39,8 @@ counting each entry's launches in each:
   at reduced sizes, and the north star, ``run_scale_torch`` at 4.8M nodes
   and 69M edges, held to the TPU run's quality on the same graph.
 
+Phases 2, 3, 4 and 8f print the sha256 of their final baskets (the ids'
+bytes and the scores' bits), so two trees' runs can be held bit for bit.
 Phases 2-4 name ``engine="sparse"``.  Each phase (each part of phase 6)
 prints one JSON line; any failure exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -219,6 +222,39 @@ def same_bits(a, b) -> bool:
         torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
 
 
+def real_state_timing(graph, state, partition: int, label: str) -> dict:
+    """The gather entry on a real basket state (GRank's ``[N, L]`` baskets:
+    distinct ids sorted by score, -1 tails): the rows of ``partition``'s
+    widest bucket below the hub path, in the first chunk ``merge_bucket``
+    gives it, held against the plain version (``ATOL``) and timed beside
+    its bound."""
+    from approximated_personalized_pagerank_tpu_torch.ops import merge as tm
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+    from approximated_personalized_pagerank_tpu_torch.utils.compare import topl_max_error
+
+    hub_sub = (mk.MAX_KERNEL_WIDTH - 1) // L
+    plan = graph.merge_plan(partition, L=L, net_width=mk.MAX_KERNEL_WIDTH)
+    top = max((b for b in plan.buckets if b.cap <= hub_sub), key=lambda b: (b.cap, b.rows.size))
+    chunk = tm.DEFAULT_ELEM_BUDGET // (2 * L)
+    succ = torch.as_tensor(top.succ[:chunk], dtype=torch.int64, device="cuda")
+    rows = torch.as_tensor(top.rows[:chunk], dtype=torch.int64, device="cuda")
+    scale, self_sc, post = grank_scales(succ)
+    args = (state.ids, state.scores, succ, rows, scale, self_sc, post, L, 128)
+    k, p = mk.gather_merge_topl(*args), mk.gather_merge_topl_plain(*args)
+    torch.cuda.synchronize()
+    err = topl_max_error(k.ids.cpu().numpy(), k.scores.cpu().numpy(),
+                         p.ids.cpu().numpy(), p.scores.cpu().numpy(), ATOL)
+    work = gather_work(state.ids, succ, L)
+    b_ms, b_by = bound_ms(*work)
+    return {"entry": "gather", "state": label, "W": mk.next_pow2(top.cap * L + 1),
+            "D": top.cap, "C": int(succ.shape[0]), "l_pad": 128,
+            "live_slot_share": float((state.ids >= 0).float().mean()),
+            "max_abs_err": err, "atol": ATOL,
+            "ms": time_ms(lambda: mk.gather_merge_topl(*args), 20),
+            "plain_ms": time_ms(lambda: mk.gather_merge_topl_plain(*args), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": work[0], "bound_ops": work[1]}
+
+
 def measured_merges(graph, half_sweeps: int) -> int:
     """Basket-merge slot updates performed: for each half-sweep, every edge
     out of the active partition contributes one basket of L slots
@@ -394,10 +430,14 @@ def phase_eat() -> dict:
         sample_result,
     )
     from approximated_personalized_pagerank_tpu_torch.ops.basket import jaccard_rows
+    from approximated_personalized_pagerank_tpu_torch.utils.compare import basket_sha256
 
     graph = load_eat_graph()
-    grank_baskets(graph, K, L, 2, DAMPING, TOL, engine="sparse", return_info=True)
+    # the warm-up keeps all L slots: the basket state the half-sweeps read
+    state = grank_baskets(graph, L, L, 2, DAMPING, TOL, engine="sparse")
     torch.cuda.synchronize()
+    real_state = real_state_timing(graph, state, 0, "eat after 2 half-sweeps")
+    del state
     clear_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -427,6 +467,7 @@ def phase_eat() -> dict:
     torch.cuda.synchronize()
     sort_wall = time.perf_counter() - t0
     agree = float(jaccard_rows(baskets.ids, sorted_b.ids).mean())
+    digest = basket_sha256(baskets)
     samples = [sample_result(b, graph, 200, True, seed=0) for b in (baskets, sorted_b)]
     stats, sort_stats = benchmark_sampled(samples, graph)
     emit({"phase": 2, "graph": "eat", "nodes": graph.num_nodes,
@@ -436,6 +477,7 @@ def phase_eat() -> dict:
           "kernel_launches": launches_json(launches),
           "peak_bytes": peak, "sort_wall_s": sort_wall,
           "sort_iterations_ran": sort_info["iterations_ran"],
+          "baskets_sha256": digest, "gather_real_state": real_state,
           "kernel_vs_sort_jaccard": agree,
           "jaccard_average": stats["jaccard average"],
           "jaccard_min": stats["jaccard min"],
@@ -458,6 +500,7 @@ def phase_scale() -> tuple:
     from approximated_personalized_pagerank_tpu_torch.ops.merge_kernel import (
         MAX_KERNEL_WIDTH,
     )
+    from approximated_personalized_pagerank_tpu_torch.utils.compare import basket_sha256
     from approximated_personalized_pagerank_tpu_torch.utils.synthetic import (
         powerlaw_graph,
     )
@@ -486,12 +529,17 @@ def phase_scale() -> tuple:
     )
     ids = out.ids[rows].cpu().numpy()
     sc = out.scores[rows].cpu().numpy()
+    digest = basket_sha256(out)
+    state = grank_baskets(big, L, L, 2, DAMPING, -1.0, engine="sparse")
+    real_state = real_state_timing(big, state, 0, "1M after 2 half-sweeps")
+    del state
     emit({"phase": 3, "graph": "powerlaw(1e6, 1e7, seed=7, locality=0.8)",
           "setup_s": setup_s, "wall_s": wall,
           "iterations_ran": info["iterations_ran"], "peak_bytes": peak,
           "hub_rows": int(hub_rows), "hub_group_gather_launches": wide,
           "kernel_launches": launches_json(launches),
-          "basket_merges_per_s": measured_merges(big, 2) / wall})
+          "basket_merges_per_s": measured_merges(big, 2) / wall,
+          "baskets_sha256": digest, "gather_real_state": real_state})
     check(wide > 0, "no hub group (gather, l_pad=256) launches at 1M nodes")
     check(sum(launches["fused_merge_topl"].values()) > 0,
           "no matrix-entry (hub tree-reduce) launches at 1M nodes")
@@ -666,6 +714,7 @@ def phase_mc() -> dict:
         sample_result,
         walk_baskets,
     )
+    from approximated_personalized_pagerank_tpu_torch.utils.compare import basket_sha256
 
     graph = load_eat_graph()
     args = (graph, MC_K, MC_L, MC_R, DAMPING)
@@ -712,6 +761,7 @@ def phase_mc() -> dict:
     sort_wall = time.perf_counter() - t0
     samples = [sample_result(b, graph, 200, True, seed=0) for b in (baskets, sorted_b)]
     stats, sort_stats = benchmark_sampled(samples, graph)
+    digest = basket_sha256(baskets)
     walks = mc_walk_checks(graph)
     timings = mc_kernel_shapes(graph, walk, walks.pop("trace"), walks.pop("sources"))
     emit({"phase": 4, "graph": "eat", "algorithm": "mccompletepathv2",
@@ -722,7 +772,7 @@ def phase_mc() -> dict:
           "abandoned_walks": info["abandoned_walks"], "total_walks": info["total_walks"],
           "abandoned_share": info["abandoned_walks"] / info["total_walks"],
           "kernel_launches": launches_json(launches), "peak_bytes": peak,
-          "sort_wall_s": sort_wall,
+          "sort_wall_s": sort_wall, "baskets_sha256": digest,
           "jaccard_average": stats["jaccard average"],
           "jaccard_min": stats["jaccard min"],
           "recall_average": stats["recall average"],
@@ -1467,7 +1517,8 @@ def north_star(smi: str) -> dict:
         emit_examples("f: north star stage", smi, stage)
 
     clear_counts()
-    out, wall = timed(lambda: mod.run_scale(test_nodes=32, log=forward, device="cuda"))
+    out, wall = timed(lambda: mod.run_scale(test_nodes=32, log=forward, device="cuda",
+                                            digests=True))
     launches = read_counts()
     emit_examples("f: north star", smi, {
         "wall_s": wall, **out, "peak_allocated_bytes": {

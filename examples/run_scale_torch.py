@@ -40,6 +40,7 @@ from approximated_personalized_pagerank_tpu_torch.ops.merge import (
     resolve_merge_algo,
 )
 from approximated_personalized_pagerank_tpu_torch.utils import io
+from approximated_personalized_pagerank_tpu_torch.utils.compare import basket_sha256
 from approximated_personalized_pagerank_tpu_torch.utils.device import (
     card_line,
     resolve_device,
@@ -99,6 +100,7 @@ def run_scale(
     device=None,
     merge_algo=None,
     mc_seed: int = 1,
+    digests: bool = False,
 ) -> dict:
     """The north star's stages; returns the ``scale_full_*`` dict.
 
@@ -106,7 +108,9 @@ def run_scale(
     ``device`` is where the run happens (None: the card); the graph is
     built anew each run (no pickle cache).  ``merge_algo`` is GRank's and
     MC's (None: the kernel on the card); ``mc_seed`` MC's walk seed
-    (run_scale.py's is 1).
+    (run_scale.py's is 1).  ``digests`` adds the sha256 of GRank's and
+    MC's final baskets (``scale_full_grank_sha256``,
+    ``scale_full_mc_sha256``), taken outside the timed stages.
     """
     if log is None:
         import functools
@@ -167,6 +171,8 @@ def run_scale(
 
     # sample the eval rows now (KBs to the host), free the full baskets
     g_sample = sample_result(baskets, graph, test_nodes, True, seed=0)
+    if digests:
+        out["scale_full_grank_sha256"] = basket_sha256(baskets)
     del baskets
 
     # --- MCCompletePathV2, full (walks + combine) ---
@@ -186,9 +192,11 @@ def run_scale(
         out["scale_full_mc_abandoned_frac"] = (
             mc_info["abandoned_walks"] / max(mc_info["total_walks"], 1))
         mc_sample = sample_result(mc, graph, test_nodes, True, seed=0)
-        del mc
         st.end("mc", t0, mc_l=mc_l, mc_seed=mc_seed, total_walks=mc_info["total_walks"],
                **{k: v for k, v in out.items() if k.startswith("scale_full_mc_")})
+        if digests:
+            out["scale_full_mc_sha256"] = basket_sha256(mc)
+        del mc
 
     # --- quality: one shared oracle pass for both algorithms ---
     t0 = st.start()

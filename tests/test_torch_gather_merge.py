@@ -6,9 +6,10 @@ CPU runs, is held here against the JAX package's ``_bucket_candidates``
 followed by ``_merge_rows`` (the XLA bitonic pipeline, and once the Pallas
 kernel in interpret mode) and the post-scale, in GRank mode, in the MC
 combine mode (post-scale != 1) and in the hub group form (no self entry).
-Tolerances: ids equal up to equal scores at the cut, scores within 1e-6,
-the float error of summing a run of equal ids in another order when rows
-hold at most unit mass.  The ``gpu`` tests hold both CUDA entries against
+The row layouts the kernel's run merge must take (``RUN_CASES``) are held
+the same way.  Tolerances: ids equal up to equal scores at the cut, scores
+within 1e-6, the float error of summing a run of equal ids in another order
+when rows hold at most unit mass.  The ``gpu`` tests hold both CUDA entries against
 their plain versions and check that the kernel's output is bitwise
 deterministic and does not depend on the order of a row's candidates.
 """
@@ -94,6 +95,62 @@ def test_gather_plain_matches_jax_bitonic(case):
     assert not bool((out.ids[1] >= 0).any()) or self_entry  # no successors
     topl_max_error(j_ids, j_sc, out.ids, out.scores, ATOL)
     assert tk.gather_merge_topl.launches == {}  # the CPU path launches nothing
+
+
+# Row layouts the kernel's run merge must take, each D*Lb (+1) wide enough
+# to pad to 8192, the width the kernel merges runs at (Lb, D, L, l_pad,
+# mode, self entry, layout): GRank's state (distinct ids sorted by score, -1
+# tails), a run of 200 in the MC combine, runs that are no multiple of a
+# warp, rows whose successors are nearly all absent, one id in every
+# successor, a wide top list, the hub group level (no self entry), and runs
+# over 512 (the kernel's block-network fallback).
+RUN_CASES = {
+    "grank_state": (100, 81, 100, 128, "grank", True, "grank"),
+    "lb200_mc_combine": (200, 40, 200, 256, "mc_combine", True, "random"),
+    "lb37": (37, 221, 37, 128, "grank", True, "random"),
+    "sparse_successors": (64, 127, 64, 128, "grank", True, "sparse"),
+    "one_id_everywhere": (50, 163, 50, 128, "grank", True, "common"),
+    "l_pad_512": (20, 409, 300, 512, "grank", True, "random"),
+    "hub_group": (200, 40, 400, 512, "grank", False, "random"),
+    "run_over_512": (520, 15, 100, 128, "grank", True, "random"),
+}
+
+
+def _run_case(case, n=3000, c=8, seed=13):
+    """Inputs of a RUN_CASES layout: baskets [n, Lb] of distinct ids a row,
+    c rows of ragged degree (row 1 has no successor), c distinct row ids."""
+    lb, d, L, l_pad, mode, self_entry, layout = RUN_CASES[case]
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.permutation(n)[:lb] for _ in range(n)]).astype(np.int32)
+    sc = (rng.random((n, lb)) / lb).astype(np.float32)
+    if layout == "grank":  # score-sorted rows with -1 tails
+        sc = -np.sort(-sc, axis=1)
+        ids[np.arange(lb)[None, :] >= rng.integers(1, lb + 1, n)[:, None]] = -1
+    else:
+        ids[rng.random((n, lb)) < 0.25] = -1
+    if layout == "common":  # id 7 in every basket, once
+        ids[ids == 7] = -1
+        ids[np.arange(n), rng.integers(0, lb, n)] = 7
+    sc = np.where(ids >= 0, sc, 0).astype(np.float32)
+    succ = rng.integers(0, n, (c, d)).astype(np.int64)
+    deg = rng.integers(1, 3, c) if layout == "sparse" else rng.integers(1, d + 1, c)
+    deg[0], deg[1] = (2 if layout == "sparse" else d), 0
+    succ[np.arange(d)[None, :] >= deg[:, None]] = -1
+    rows = rng.choice(n, c, replace=False).astype(np.int64)
+    return ids, sc, succ, rows, mode, L, l_pad, self_entry
+
+
+@pytest.mark.parametrize("case", sorted(RUN_CASES))
+def test_gather_plain_matches_jax_on_run_layouts(case):
+    ids, sc, succ, rows, mode, L, l_pad, self_entry = _run_case(case)
+    j_ids, j_sc = _jax_reference(ids, sc, succ, rows, mode, L, "bitonic", self_entry)
+    scale, self_scores, post = _port_args(succ, mode)
+    if not self_entry:
+        self_scores, post = None, None
+    out = tk.gather_merge_topl(_t(ids), _t(sc), _t(succ), _t(rows), scale,
+                               self_scores, post, L, l_pad)
+    assert out.ids.shape == (succ.shape[0], L)
+    topl_max_error(j_ids, j_sc, out.ids, out.scores, ATOL)
 
 
 def test_gather_plain_matches_jax_pallas_interpret():
@@ -218,6 +275,31 @@ def test_cuda_gather_matches_plain(cuda, w):
 
 def _bits(t):
     return t.view(torch.int32).cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RUN_CASES))
+def test_cuda_gather_run_layouts(cuda, case):
+    """The kernel on each run layout: against the plain version, and
+    bitwise equal over two launches and with the successors permuted."""
+    ids, sc, succ, rows, mode, L, l_pad, self_entry = _run_case(case)
+    scale, self_scores, post = (x.to(cuda) for x in _port_args(succ, mode))
+    if not self_entry:
+        self_scores, post = None, None
+    perm = succ[:, np.random.default_rng(14).permutation(succ.shape[1])]
+    base = [_t(x).to(cuda) for x in (ids, sc)]
+    rest = (_t(rows).to(cuda), scale, self_scores, post, L, l_pad)
+    w = succ.shape[1] * ids.shape[1] + int(self_entry)
+    counter = (max(tk.next_pow2(w), l_pad), l_pad)
+    before = tk.gather_merge_topl.launches[counter]
+    runs = [tk.gather_merge_topl(*base, _t(s).to(cuda), *rest) for s in (succ, succ, perm)]
+    p = tk.gather_merge_topl_plain(*base, _t(succ).to(cuda), *rest)
+    torch.cuda.synchronize()
+    assert tk.gather_merge_topl.launches[counter] == before + 3
+    topl_max_error(runs[0].ids.cpu(), runs[0].scores.cpu(), p.ids.cpu(), p.scores.cpu(), ATOL)
+    for x in runs[1:]:
+        assert torch.equal(x.ids.cpu(), runs[0].ids.cpu())
+        assert torch.equal(_bits(x.scores), _bits(runs[0].scores))
 
 
 @pytest.mark.gpu

@@ -92,6 +92,21 @@ def test_keep_top_matches(rng, k):
     assert torch.equal(c.ids, t.ids) and torch.equal(c.scores, t.scores)
 
 
+@pytest.mark.parametrize("k", [1, 7, 20, 40])
+def test_keep_top_cuts_ties_as_jax(rng, k):
+    """Scores from three values, so most of a row ties: ids, order and
+    scores equal JAX's keep_top to the bit (jax.lax.top_k puts equal scores
+    in ascending column order; its sort branch, k >= W, too)."""
+    ids = np.stack([rng.permutation(500)[:32] for _ in range(16)]).astype(np.int32)
+    ids[rng.random((16, 32)) < 0.3] = -1
+    scores = rng.choice(np.array([0.25, 0.5, 1.0], np.float32), (16, 32))
+    scores[ids < 0] = 0.0
+    j = jb.keep_top(jnp.asarray(ids), jnp.asarray(scores), k)
+    t = tb.keep_top(_t(ids), _t(scores), k)
+    np.testing.assert_array_equal(t.ids.numpy(), np.asarray(j.ids))
+    np.testing.assert_array_equal(t.scores.numpy(), np.asarray(j.scores))
+
+
 def test_norm1_and_jaccard_match(rng):
     a_ids = np.stack([rng.permutation(40)[:10] for _ in range(12)]).astype(np.int32)
     b_ids = np.stack([rng.permutation(40)[:10] for _ in range(12)]).astype(np.int32)

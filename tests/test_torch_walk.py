@@ -83,6 +83,7 @@ def test_plan_helpers_match_jax(R, damping):
 @pytest.mark.parametrize("n,R,expect_chunk", [
     (40, 1000, 40), (23132, 1000, 512), (23132, 200, 512),
     (1_000_000, 1000, 9344), (1_000_000, 200, 32768),
+    (4_800_000, 200, 32768),  # the north star's MC (its mc_l does not enter the plan)
 ])
 def test_trace_chunk_sizes_match_jax(monkeypatch, n, R, expect_chunk):
     """JAX's generator, with its chunk walk and merge stubbed out, shows
@@ -213,6 +214,21 @@ def test_walk_baskets_info_matches_jax(engine):
     assert ti == ji and ti["walk_steps"] > 0
     assert tb.ids.shape == (gt.num_nodes, 12)
     topl_max_error(np.asarray(jb.ids), np.asarray(jb.scores), tb.ids, tb.scores, ATOL)
+
+
+@pytest.mark.parametrize("engine", ["trace", "counts"])
+def test_walk_baskets_cut_ties_as_jax(engine):
+    """Visit counts tie often at a cut below |V| (L=12 of 60 nodes, R=300).
+    The port's sort pipeline cuts them as the JAX package's does (keep_top:
+    equal counts to the lower column, on id-sorted rows the smaller id), so
+    the baskets are equal to the bit, not merely up to ties."""
+    gj, gt = _graph(4)
+    kw = dict(seed=7, source_chunk=16, slots=8, engine=engine)
+    jb = jw.walk_baskets(gj, 12, 300, DAMPING, **kw)
+    tb = pt.walk_baskets(gt, 12, 300, DAMPING, device="cpu", merge_algo="sort", **kw)
+    np.testing.assert_array_equal(tb.ids.numpy(), np.asarray(jb.ids))
+    np.testing.assert_array_equal(tb.scores.numpy().view(np.int32),
+                                  np.asarray(jb.scores).view(np.int32))
 
 
 @pytest.mark.parametrize("algo", ["sort", "kernel"])
