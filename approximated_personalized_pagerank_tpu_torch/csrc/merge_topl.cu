@@ -52,19 +52,52 @@
 //     direction-free form (sort_keys), which spends none on a direction: the
 //     form with directions took 0.22 ms at W=8192, C=517, this one 0.14 ms
 //     (chip_smoke.py phase 1, H100 80GB HBM3, 700 W).
-//  3. Run sums.  The sorted row goes to shared memory once; each run start sums
-//     its run forward in sorted order.  Every other slot, and a PAD run, is
-//     dead.
-//  4. Exact top-l_pad without a second sort.  A radix select over the
-//     order-preserving bits of the run totals (8-bit digits, shared-memory
-//     histograms with warp-aggregated atomics, 4 passes; dead slots take no
-//     part) finds the l_pad-th largest total.  A block prefix scan compacts
-//     the survivors, ties at the threshold taken in ascending id order, into
-//     at most l_pad keys (~total << 32 | id).  One warp sorts them in
-//     registers and shuffles (l_pad <= 256; the whole block for wider l_pad):
-//     descending by score, ties by ascending id.  Slots past the live count
-//     are written as (-1, 0).
-//
+//  3. Run sums.  The sorted row goes to shared memory once; each run start
+//     sums its run forward in sorted order.  Every other slot, and a PAD
+//     run, is dead.
+//  4. Top-l_pad, by the TPU kernel's rule.  That kernel sorts its row of W
+//     slots by id (PAD slots last; W: the matrix entry's width, or the
+//     gather entry's candidates padded to a power of two and to at least
+//     l_pad, as _merge_rows pads them), sums each run into the run's last
+//     slot (segmented_sum_sorted) and runs bitonic_prune_topk
+//     (ops/bitonic.py:205), a network that compares scores alone, with
+//     strict < and >.  So where two survivors hold one total, or the cut
+//     falls inside a run of equal totals, the network's shape and each
+//     total's run-end position p decide which ids survive and in what
+//     order; p = (slots with id <= the run's id) - 1 depends only on the
+//     row's multiset of ids.  This kernel computes the same function:
+//     4a. A radix select over the order-preserving bits of the totals
+//        (8-bit digits, shared-memory histograms with warp-aggregated
+//        atomics, 4 passes; dead slots take no part) finds the l_pad-th
+//        largest, thr.
+//     4b. A row whose cut splits a run of equal totals is tied.
+//     4c. Otherwise a block prefix scan compacts the survivors into at most
+//        l_pad keys (~total << 32 | id) in shared memory past the row, and
+//        one warp sorts them in registers and shuffles (l_pad <= 256; the
+//        whole block for wider l_pad), descending.  Survivors that repeat a
+//        total are now adjacent: such a row is tied too.  Every other row
+//        has one answer, whatever the rule for ties, and is written.
+//     4d. A tied row runs the prune network itself (tied_topl), in shared
+//        memory over the W slots the sorted row held (64 KB at 8192): each
+//        total is summed again (as in step 3) onto its run's last slot,
+//        which is p, and the totals below thr are left out, which moves no
+//        survivor (a compare of a survivor with a lower total goes one way
+//        either way).  Blocks of the network with no live slot are
+//        skipped, and the prune rounds halve the row in place.  MC's visit
+//        counts tie in nearly every row, and GRank's early states often.
+//        A tied row takes 1.4-1.8x an untied one at the main path's shapes
+//        (chip_smoke.py phase 1, H100 80GB HBM3, 700 W): the network's
+//        stages are block-wide, one barrier each.  A version with the
+//        k-block sorts in
+//        registers and shuffles, one with a warp per k-block (a warp
+//        barrier a stage), one that loads four pairs before comparing
+//        them, and one that visits only pairs holding a live slot (a
+//        bitmap of live slots, a thread a word) were all slower on the card.
+//     Slots past the live count are written as (-1, 0).  Ids, scores and
+//     order are bitwise the TPU kernel's wherever the run sums are exact
+//     (visit counts, dyadic scores); elsewhere ties are decided on this
+//     kernel's sums, which differ from the TPU kernel's scan in last bits.
+
 // The gather entry's rows of 8192 sort by run (rows below 8192, and the
 // matrix entry, keep steps 1-2 above).  The gather entry replaces the same
 // TPU kernel with the gather that fed it, _bucket_candidates
@@ -90,9 +123,10 @@
 //     n keys (64 KB at 8192) suffices and two blocks share an SM.  The last
 //     level's outputs stay in registers as step 3's input: the network's
 //     sorted row without its dead slots.
-//  d. Steps 3-4 as above; warps whose keys are all past the live count skip
-//     the radix select's per-key work, as do digit passes no key of a warp
-//     is in.
+//  d. Steps 3-4 as above (p is a key's index in the merged row: the keys
+//     left out are all dead, and lie at the end of the TPU kernel's row);
+//     warps whose keys are all past the live count skip the radix select's
+//     per-key work, as do digit passes no key of a warp is in.
 //
 // Rows with Lb > 512 (D <= 16) or more than 512 runs keep the block network.
 // Measured on an H100 (chip_smoke.py phases 1-4, PERF.md section 6): a merge
@@ -107,7 +141,9 @@
 //
 // Registers: E=16 keys are 32 registers; __launch_bounds__(512, 2) keeps two
 // 512-thread blocks (W=8192) on an SM, each with 68 KB of dynamic shared
-// memory, above the 48 KB static limit, hence cudaFuncSetAttribute below.
+// memory for the row and 8.5 bytes a slot of l_pad for the survivors (72 KB
+// at l_pad 512), above the 48 KB static limit, hence cudaFuncSetAttribute
+// below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,6 +160,9 @@ constexpr uint64_t kDeadKey = static_cast<uint64_t>(kPadId) << 32;
 constexpr uint64_t kEmptyKey = ~0ull;
 
 __device__ __forceinline__ int pad_idx(int i) { return i + (i >> 4); }
+
+// The kernel's dynamic shared memory, as step 4d's function sees it.
+extern __shared__ uint64_t dyn_sm[];
 
 __host__ __device__ constexpr int padded_words(int n) { return n + (n >> 4); }
 
@@ -290,25 +329,40 @@ __device__ __forceinline__ unsigned block_scan(unsigned v, int t, int nt,
   return ws[w] + x - v;
 }
 
-// Sorts the first n = T*EF slots of sm (T threads) and writes the row's
-// first out_width slots.
+// Sorts the first n = T*EF slots of s (T threads) ascending, in place.
 template <int EF>
-__device__ __forceinline__ void sort_and_store(int t, int n, uint64_t* sm,
-                                               int* out_ids, float* out_scores,
-                                               int out_width, float post) {
+__device__ __forceinline__ void sort_in_place(int t, int n, uint64_t* s) {
   uint64_t key[EF];
 #pragma unroll
-  for (int e = 0; e < EF; ++e) key[e] = sm[t * EF + e];
-  if (n > 32 * EF) __syncthreads();  // the block sort overwrites sm
-  sort_keys<EF>(key, t, n, sm);
+  for (int e = 0; e < EF; ++e) key[e] = s[t * EF + e];
+  if (n > 32 * EF) __syncthreads();  // the block sort overwrites s
+  sort_keys<EF>(key, t, n, s);
+  if (n > 32 * EF) __syncthreads();  // and reads it in another layout
 #pragma unroll
-  for (int e = 0; e < EF; ++e) {
-    const int i = t * EF + e;
-    if (i < out_width) {
-      const bool live = key[e] != kEmptyKey;
-      out_ids[i] = live ? static_cast<int>(static_cast<uint32_t>(key[e])) : -1;
-      out_scores[i] = live ? unordered(~key_id(key[e])) * post : 0.0f;
+  for (int e = 0; e < EF; ++e) s[t * EF + e] = key[e];
+}
+
+// Step 4d's run totals: each live run's total at the run's last slot, its
+// position in the TPU kernel's row, summed forward from the run's start as
+// step 3 sums it; 0 elsewhere.  Reads the sorted row, sm[pad_idx(0 .. n)].
+template <int E>
+__device__ __forceinline__ void totals_at_ends(const uint64_t* sm, int t, int n,
+                                               uint32_t (&tot)[E],
+                                               uint32_t (&ids)[E]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = t * E + e;
+    const uint32_t id = key_id(sm[pad_idx(i)]);
+    uint32_t m = 0;
+    if (id != kPadId && (i + 1 == n || key_id(sm[pad_idx(i + 1)]) != id)) {
+      int s0 = i;
+      while (s0 > 0 && key_id(sm[pad_idx(s0 - 1)]) == id) --s0;
+      float s = key_score(sm[pad_idx(s0)]);
+      for (int q = s0 + 1; q <= i; ++q) s += key_score(sm[pad_idx(q)]);
+      m = ordered(s + 0.0f);
     }
+    tot[e] = m;
+    ids[e] = id;
   }
 }
 
@@ -530,6 +584,108 @@ __device__ __forceinline__ int gather_by_run(const Gather& g, long long row,
   return total;
 }
 
+// One compare-exchange stage of the TPU kernel's top-k network at distance j
+// (< k) over logical slots [0, len), len a multiple of 2j: logical slot q is
+// sm[pad_idx((q / k) * span + q % k)] (a k-block's slots stay together while
+// the prune rounds halve the row in place), its code in the high word.  The
+// pair (q, q + j) with bit j of q clear sorts descending where bit `dir` of q
+// is set (clear, with `flip`; everywhere, with `all_desc`), else ascending;
+// equal codes never swap.
+__device__ __forceinline__ void net_stage(uint64_t* sm, int t, int nt, int len,
+                                          int j, int k_shift, int span, int dir,
+                                          bool flip, bool all_desc) {
+  const int k_mask = (1 << k_shift) - 1;
+  for (int p = t; p < (len >> 1); p += nt) {
+    const int q = 2 * p - (p & (j - 1));
+    const bool desc = all_desc || (((q & dir) != 0) != flip);
+    const int a = (q >> k_shift) * span + (q & k_mask);
+    const uint64_t x = sm[pad_idx(a)], y = sm[pad_idx(a + j)];
+    const uint32_t cx = key_id(x), cy = key_id(y);
+    if (desc ? cx < cy : cx > cy) {
+      sm[pad_idx(a)] = y;
+      sm[pad_idx(a + j)] = x;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) & ~(m - 1); }
+
+// The TPU kernel's top-k (bitonic_prune_topk, approximated_personalized_
+// pagerank_tpu/ops/bitonic.py:205) on the w slots of sm, code << 32 | id with
+// code 0 dead: afterwards slots 0..k-1 hold the row's top k, descending, equal
+// codes in the order that network leaves them.  k = w: a bitonic sort,
+// descending.  Else k-blocks sort ascending and descending in turn; then each
+// round keeps, in each pair of blocks, the larger of each two slots k apart
+// (the first block's on a tie) and merges the survivors back into blocks of
+// alternating direction, descending in the last round.  Blocks past `live`
+// (one past the last live slot) hold only dead slots and take no part: a
+// compare-exchange of two dead slots never swaps.
+__device__ __forceinline__ void prune_network(uint64_t* sm, int t, int nt, int w,
+                                              int k, int live) {
+  const int k_shift = __ffs(k) - 1;
+  if (k == w) {
+    for (int size = 2; size <= w; size <<= 1)
+      for (int j = size >> 1; j >= 1; j >>= 1)
+        net_stage(sm, t, nt, round_up(live, size), j, k_shift, k, size, true, false);
+    return;
+  }
+  for (int size = 2; size <= k; size <<= 1)
+    for (int j = size >> 1; j >= 1; j >>= 1)
+      net_stage(sm, t, nt, round_up(live, size), j, k_shift, k, size, false, false);
+  int blocks = (live + k - 1) >> k_shift;  // k-blocks that may hold a live slot
+  int span = k;                            // the stride of k-blocks in sm
+  for (int wc = w; wc > k; wc >>= 1) {
+    for (int p = t; p < (blocks >> 1) << k_shift; p += nt) {
+      const int a = (p >> k_shift) * 2 * span + (p & (k - 1));
+      const uint64_t y = sm[pad_idx(a + span)];
+      if (key_id(y) > key_id(sm[pad_idx(a)])) sm[pad_idx(a)] = y;
+    }
+    __syncthreads();
+    blocks = (blocks + 1) >> 1;
+    span <<= 1;
+    for (int j = k >> 1; j >= 1; j >>= 1)
+      net_stage(sm, t, nt, blocks << k_shift, j, k_shift, span, k, false, wc == 2 * k);
+  }
+}
+
+// Step 4d (the note): the prune network on a tied row, each survivor at
+// its position (code << 32 | id), the rest dead.  A total below thr never
+// reaches the output, and the network moves every total at or above it as
+// it would with the lower ones present (each compare of the two kinds goes
+// one way), so leaving them out changes no survivor's path.  Out of line:
+// only tied rows call it.  Reads the sorted row, dyn_sm[pad_idx(0 .. n)],
+// and overwrites it.
+template <int E>
+__device__ __noinline__ void tied_topl(int t, int nt, int n, int net_width,
+                                       int l_pad, uint32_t thr, int* o_ids,
+                                       float* o_sc, int out_width, float post) {
+  __shared__ int live_end;  // one past the last survivor's position
+  if (t == 0) live_end = 0;
+  uint32_t tot[E];
+  uint32_t ids[E];
+  totals_at_ends<E>(dyn_sm, t, n, tot, ids);
+  __syncthreads();  // every read of the sorted row is done
+  int end = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = t * E + e;
+    const bool keep = tot[e] != 0 && tot[e] >= thr;
+    if (i < net_width)
+      dyn_sm[pad_idx(i)] = keep ? (static_cast<uint64_t>(tot[e]) << 32) | ids[e] : 0ull;
+    if (keep) end = i + 1;
+  }
+  if (end > 0) atomicMax(&live_end, end);
+  __syncthreads();
+  prune_network(dyn_sm, t, nt, net_width, l_pad, live_end);
+  for (int i = t; i < out_width; i += nt) {
+    const uint64_t k = dyn_sm[pad_idx(i)];
+    const uint32_t code = key_id(k);
+    o_ids[i] = code != 0 ? static_cast<int>(static_cast<uint32_t>(k)) : -1;
+    o_sc[i] = code != 0 ? unordered(code) * post : 0.0f;
+  }
+}
+
 // Threads of the widest row a kernel with E keys a thread sorts: E=16 for
 // rows of 4096 and 8192, E=8 below.
 template <int E>
@@ -544,7 +700,8 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
     merge_kernel(const int* __restrict__ in_ids,
                  const float* __restrict__ in_scores, int width, Gather g,
                  const float* __restrict__ post_scale, int* __restrict__ out_ids,
-                 float* __restrict__ out_scores, int out_width, int l_pad) {
+                 float* __restrict__ out_scores, int out_width, int l_pad,
+                 int net_width, unsigned long long* __restrict__ tie_counts) {
   extern __shared__ uint64_t sm[];
   __shared__ unsigned hist[256];
   __shared__ unsigned ws[33];
@@ -623,7 +780,7 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
         if (key_id(kq) != id) break;
         s += key_score(kq);
       }
-      m = ordered(s);
+      m = ordered(s + 0.0f);  // -0.0 becomes +0.0, as in the TPU kernel's scan
     }
     tot[e] = m;
     ids[e] = id;
@@ -693,8 +850,9 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   }
   const uint32_t thr = prefix;  // 0 when all_live: every live total is > 0
 
-  // 4b. compact the survivors into sm[0, kept): totals above thr in any
-  //     order, then the first `need` totals equal to thr in id order
+  // 4b. the survivors: the totals above thr and, unless all_live, `need` of
+  //     those equal to it.  A row whose cut splits a run of equal totals is
+  //     tied: the TPU kernel's network decides which of them survive.
   unsigned cnt = 0;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -703,49 +861,73 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   }
   unsigned total;
   const unsigned base = block_scan(cnt, t, nt, ws, &total);
-  const unsigned n_gt = total & 0xffffu;
-  unsigned gt_pos = base & 0xffffu, eq_pos = base >> 16;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const uint64_t out_key = (static_cast<uint64_t>(~tot[e]) << 32) | ids[e];
-    if (tot[e] > thr) {
-      sm[gt_pos++] = out_key;
-    } else if (!all_live && tot[e] == thr) {
-      if (eq_pos < need) sm[n_gt + eq_pos] = out_key;
-      ++eq_pos;
-    }
-  }
-  const int kept = static_cast<int>(n_gt + (all_live ? 0u : need));
-  const int n_final = l_pad < 32 ? 32 : l_pad;
-  for (int i = kept + t; i < n_final; i += nt) sm[i] = kEmptyKey;
-  __syncthreads();
+  const bool split = !all_live && (total >> 16) > need;
 
-  // 4c. sort the survivors descending by total, ties by ascending id
+  // 4c. compact the survivors (~total << 32 | id) into `top`, shared memory
+  //     past the sorted row (which 4d may read again), and sort them
+  //     descending by total.  Survivors that repeat a total are adjacent
+  //     now; a row that has them is tied too, as the network decides their
+  //     order.  Every other row has one answer, written from `top`.
+  uint64_t* top = sm + padded_words(n);
+  const int n_final = l_pad < 32 ? 32 : l_pad;
+  int repeat = 0;
+  if (!split) {
+    const unsigned n_gt = total & 0xffffu;
+    unsigned gt_pos = base & 0xffffu, eq_pos = base >> 16;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const uint64_t out_key = (static_cast<uint64_t>(~tot[e]) << 32) | ids[e];
+      if (tot[e] > thr) {
+        top[gt_pos++] = out_key;
+      } else if (!all_live && tot[e] == thr) {
+        top[n_gt + eq_pos++] = out_key;
+      }
+    }
+    const int kept = static_cast<int>(n_gt + (all_live ? 0u : need));
+    for (int i = kept + t; i < n_final; i += nt) top[i] = kEmptyKey;
+    __syncthreads();
+    if (n_final <= 256) {
+      if (t < 32) {  // one warp, in registers and shuffles
+        switch (n_final) {
+          case 32: sort_in_place<1>(t, 32, top); break;
+          case 64: sort_in_place<2>(t, 64, top); break;
+          case 128: sort_in_place<4>(t, 128, top); break;
+          default: sort_in_place<8>(t, 256, top); break;
+        }
+      }
+    } else {
+      // l_pad >= 512 >= nt, and l_pad <= n, so l_pad / nt is 1..E
+      switch (n_final / nt) {
+        case 1: sort_in_place<1>(t, n_final, top); break;
+        case 2: sort_in_place<2>(t, n_final, top); break;
+        case 4: sort_in_place<4>(t, n_final, top); break;
+        case 8: sort_in_place<8>(t, n_final, top); break;
+        default:
+          if constexpr (E >= 16) sort_in_place<16>(t, n_final, top);
+          break;
+      }
+    }
+    __syncthreads();
+    for (int i = t; i + 1 < kept; i += nt)
+      repeat |= key_id(top[i]) == key_id(top[i + 1]) ? 1 : 0;
+  }
+  const bool tied = __syncthreads_or(repeat) || split;
+  if (tie_counts != nullptr && tied && t == 0)
+    atomicAdd(tie_counts + (split ? 0 : 1), 1ull);
   const float post = post_scale != nullptr ? post_scale[row] : 1.0f;
   int* o_ids = out_ids + row * out_width;
   float* o_sc = out_scores + row * out_width;
-  if (n_final <= 256) {
-    if (t < 32) {
-      switch (n_final) {
-        case 32: sort_and_store<1>(t, 32, sm, o_ids, o_sc, out_width, post); break;
-        case 64: sort_and_store<2>(t, 64, sm, o_ids, o_sc, out_width, post); break;
-        case 128: sort_and_store<4>(t, 128, sm, o_ids, o_sc, out_width, post); break;
-        default: sort_and_store<8>(t, 256, sm, o_ids, o_sc, out_width, post); break;
-      }
+  if (!tied) {
+    for (int i = t; i < out_width; i += nt) {
+      const uint64_t k = top[i];
+      const bool live = k != kEmptyKey;
+      o_ids[i] = live ? static_cast<int>(static_cast<uint32_t>(k)) : -1;
+      o_sc[i] = live ? unordered(~key_id(k)) * post : 0.0f;
     }
-  } else {
-    // l_pad >= 512 >= nt, and l_pad <= n, so l_pad / nt is 1..E
-    switch (n_final / nt) {
-      case 1: sort_and_store<1>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
-      case 2: sort_and_store<2>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
-      case 4: sort_and_store<4>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
-      case 8: sort_and_store<8>(t, n_final, sm, o_ids, o_sc, out_width, post); break;
-      default:
-        if constexpr (E >= 16)
-          sort_and_store<16>(t, n_final, sm, o_ids, o_sc, out_width, post);
-        break;
-    }
+    return;
   }
+
+  tied_topl<E>(t, nt, n, net_width, l_pad, thr, o_ids, o_sc, out_width, post);
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -759,46 +941,58 @@ int next_pow2(int x) {
 template <int E, bool kGather, bool kByRun = false>
 int launch(int rows, int n, const int* ids, const float* scores, int width,
            const Gather& g, const float* post_scale, int* out_ids,
-           float* out_scores, int out_width, int l_pad, cudaStream_t stream) {
-  const int smem = padded_words(n) * static_cast<int>(sizeof(uint64_t));
+           float* out_scores, int out_width, int l_pad, int net_width,
+           unsigned long long* tie_counts, cudaStream_t stream) {
+  // the row, then the survivors (step 4c)
+  const int smem = (padded_words(n) + padded_words(l_pad < 32 ? 32 : l_pad)) *
+                   static_cast<int>(sizeof(uint64_t));
   cudaError_t err = cudaFuncSetAttribute(
       merge_kernel<E, kGather, kByRun>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_kernel<E, kGather, kByRun><<<rows, n / E, smem, stream>>>(
-      ids, scores, width, g, post_scale, out_ids, out_scores, out_width, l_pad);
+      ids, scores, width, g, post_scale, out_ids, out_scores, out_width, l_pad,
+      net_width, tie_counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 // n: the row's sort width, a power of two in [256, 8192].  E=16 keys a thread
 // from 4096 up (256 and 512 threads), E=8 below (32 to 256 threads).
-// by_run: the gather entry's run merge (n == kRunMergeWidth).
+// net_width: the width of the TPU kernel's row, <= n (step 4d).  by_run: the
+// gather entry's run merge (n == kRunMergeWidth).
 template <bool kGather>
 int dispatch(int rows, int n, const int* ids, const float* scores, int width,
              const Gather& g, const float* post_scale, int* out_ids,
-             float* out_scores, int out_width, int l_pad, void* stream,
-             bool by_run = false) {
+             float* out_scores, int out_width, int l_pad, int net_width,
+             unsigned long long* tie_counts, void* stream, bool by_run = false) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (by_run)
     return launch<16, true, true>(rows, n, ids, scores, width, g, post_scale,
-                                  out_ids, out_scores, out_width, l_pad, st);
+                                  out_ids, out_scores, out_width, l_pad,
+                                  net_width, tie_counts, st);
   if (n >= 4096)
     return launch<16, kGather>(rows, n, ids, scores, width, g, post_scale,
-                               out_ids, out_scores, out_width, l_pad, st);
-  return launch<8, kGather>(rows, n, ids, scores, width, g, post_scale,
-                            out_ids, out_scores, out_width, l_pad, st);
+                               out_ids, out_scores, out_width, l_pad, net_width,
+                               tie_counts, st);
+  return launch<8, kGather>(rows, n, ids, scores, width, g, post_scale, out_ids,
+                            out_scores, out_width, l_pad, net_width, tie_counts,
+                            st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// tie_counts, in both entries: null, or two counters to which each row that
+// takes step 4d adds one, the first when its cut splits a run of equal
+// totals, else the second (only survivors repeat a total).
+
 // The matrix entry.  Launches on `stream` for `rows` rows of width `width`;
 // writes [rows, l_pad].  Returns the CUDA error code of the launch (0 on
 // success).  Does not synchronise.
 int ppr_merge_topl(const int* ids, const float* scores, int* out_ids,
                    float* out_scores, int rows, int width, int l_pad,
-                   void* stream) {
+                   unsigned long long* tie_counts, void* stream) {
   if (rows <= 0) return 0;
   if (width < 2 || width > kMaxWidth || !pow2(width) || !pow2(l_pad) ||
       l_pad > width)
@@ -806,7 +1000,7 @@ int ppr_merge_topl(const int* ids, const float* scores, int* out_ids,
   const int n = width < kMinSortWidth ? kMinSortWidth : width;
   Gather g{};
   return dispatch<false>(rows, n, ids, scores, width, g, nullptr, out_ids,
-                         out_scores, l_pad, l_pad, stream);
+                         out_scores, l_pad, l_pad, width, tie_counts, stream);
 }
 
 // The gather entry.  Row c's candidates are the live entries of the baskets
@@ -819,22 +1013,26 @@ int ppr_gather_merge_topl(const int* basket_ids, const float* basket_scores,
                           int d, const long long* row_ids, const float* scale,
                           const float* self_scores, const float* post_scale,
                           int* out_ids, float* out_scores, int rows,
-                          int out_width, int l_pad, void* stream) {
+                          int out_width, int l_pad,
+                          unsigned long long* tie_counts, void* stream) {
   if (rows <= 0) return 0;
   const long long w = static_cast<long long>(d) * lb + (self_scores ? 1 : 0);
   if (lb < 1 || d < 0 || w < 1 || w > kMaxWidth || !pow2(l_pad) ||
       l_pad > kMaxWidth || out_width < 1 || out_width > l_pad)
     return static_cast<int>(cudaErrorInvalidValue);
-  int n = next_pow2(static_cast<int>(w));
-  if (n < l_pad) n = l_pad;
-  if (n < kMinSortWidth) n = kMinSortWidth;
+  // the TPU kernel's row: the candidates padded to a power of two, and to
+  // at least l_pad (ops/merge_kernel.py::pad_candidates)
+  int net_width = next_pow2(static_cast<int>(w));
+  if (net_width < l_pad) net_width = l_pad;
+  const int n = net_width < kMinSortWidth ? kMinSortWidth : net_width;
   const int n_runs = d + (self_scores ? 1 : 0);
   const bool by_run =
       n == kRunMergeWidth && lb <= kMaxRunWidth && n_runs <= kMaxRuns;
   Gather g{basket_ids, basket_scores, n_basket, lb, succ, d, row_ids, scale,
            self_scores};
   return dispatch<true>(rows, n, nullptr, nullptr, 0, g, post_scale, out_ids,
-                        out_scores, out_width, l_pad, stream, by_run);
+                        out_scores, out_width, l_pad, net_width, tie_counts,
+                        stream, by_run);
 }
 
 const char* ppr_cuda_error_string(int code) {

@@ -32,6 +32,7 @@ Either may carry ``":<cap>"``, a lower width cap for the kernel pipeline.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -66,6 +67,10 @@ MIN_NETWORK_WIDTH = 256
 HUB_TOP_M_FACTOR = 2
 
 MERGE_ALGOS = ("sort", "kernel")
+# Names the pipeline of a call that names none (``sort`` or
+# ``kernel[:cap]``), read at each call.  Its own name: the JAX package's
+# PPR_MERGE_ALGO takes other values, and a process may import both.
+MERGE_ALGO_ENV = "PPR_TORCH_MERGE_ALGO"
 
 
 def _split_algo(algo: str) -> Tuple[str, int]:
@@ -78,10 +83,20 @@ def _split_algo(algo: str) -> Tuple[str, int]:
     return name, max_w
 
 
-def resolve_merge_algo(algo: str | None, device: torch.device) -> str:
-    """None -> the fused kernel on CUDA, the sort pipeline on the CPU."""
+def resolve_merge_algo(algo: str | None, device: torch.device | None) -> str:
+    """None -> $PPR_TORCH_MERGE_ALGO if set, else the fused kernel on CUDA
+    and the sort pipeline on the CPU.  On CUDA the variable may only name
+    ``kernel``: a call that leaves the kernel says so with ``merge_algo``."""
     if algo is None:
-        algo = "kernel" if device.type == "cuda" else "sort"
+        env = os.environ.get(MERGE_ALGO_ENV)
+        cuda = device is not None and device.type == "cuda"
+        if env:
+            _split_algo(env)
+            if cuda and env != "kernel":
+                raise ValueError(
+                    f"{MERGE_ALGO_ENV}={env!r} would take the card's merges off the "
+                    "CUDA kernel; pass merge_algo to choose another pipeline there")
+        algo = env or ("kernel" if cuda else "sort")
     _split_algo(algo)
     return algo
 

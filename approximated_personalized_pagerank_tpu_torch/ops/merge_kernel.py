@@ -28,12 +28,29 @@ ids), scores float32.  Returns ``[C, l_pad]`` ids (-1 padding) and scores
 ``<= W``.  A run of PAD ids is dropped, and dead slots rank below every
 live one, so a live score of 0 (damping 1) survives.
 
-The kernel's output is bitwise deterministic and does not depend on the
-order of a row's candidates: equal ids are summed in the order of their
-score bits, and ties at the cut go to the smaller id.  The plain versions
-sum in candidate order and cut ties as ``torch.topk`` does, so the two
-agree up to ties at the cut and the last bits of a run's sum
-(``utils/compare.py::topl_max_error``).
+The function, stated once.  The TPU kernel sorts each row by id (W slots,
+PAD last; W is the matrix entry's width, or the gather entry's candidate
+count padded to a power of two and to at least ``l_pad``, as
+:func:`pad_candidates` and the JAX package's ``_merge_rows`` pad it), sums
+each run of equal ids into the run's last slot, and runs
+``bitonic_prune_topk`` (its ``ops/bitonic.py:205``) on that row of (total
+at the run-end position p, -inf elsewhere): a network that compares scores
+alone, with strict < and >.  Both entries and both plain versions return
+what that network returns: the same ids, the same scores and the same
+order.  p = (slots with id <= the run's id) - 1 depends only on the row's
+multiset of ids (negative ids count as PAD), so the output does not depend
+on the order of a row's candidates.  Where no two survivors share a total
+and the cut falls between distinct totals, this is simply the top
+``l_pad`` by descending score; only tied rows depend on the rule.  The
+port's sort pipeline (``ops/basket.py::keep_top``) keeps ``lax.top_k``'s
+rule instead, as the JAX package's does.
+
+Bits: where the run sums are exact (visit counts, dyadic scores) the
+kernel, the plain versions and the TPU kernel agree bitwise in ids, scores
+and order.  Elsewhere each decides ties on its own sums: the kernel sums a
+run in the order of its score bits (bitwise deterministic), the plain
+versions in candidate order, the TPU kernel by a prefix scan; these differ
+in the last bits (``utils/compare.py::topl_max_error``).
 """
 
 from __future__ import annotations
@@ -50,7 +67,7 @@ from typing import Optional, Tuple
 import torch
 
 from .basket import (
-    SENTINEL, Baskets, run_ends, run_index, run_sums, sort_rows_by_id,
+    SENTINEL, Baskets, run_ends, run_sums, sort_rows_by_id,
 )
 
 # Id of a dead slot: sorts after every live id.
@@ -118,14 +135,14 @@ def load_library() -> ctypes.CDLL:
     lib.ppr_merge_topl.restype = ctypes.c_int
     lib.ppr_merge_topl.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.ppr_gather_merge_topl.restype = ctypes.c_int
     lib.ppr_gather_merge_topl.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.ppr_cuda_error_string.restype = ctypes.c_char_p
     lib.ppr_cuda_error_string.argtypes = [ctypes.c_int]
@@ -133,29 +150,83 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def _exchange(ids: torch.Tensor, keys: torch.Tensor, j: int, desc: torch.Tensor):
+    """One compare-exchange stage at distance ``j`` on ``[C, W]`` rows: slot
+    i (bit j clear) against i + j, the larger key to i where ``desc[i]``,
+    the smaller elsewhere.  Equal keys never swap."""
+    c, w = keys.shape
+    k4 = keys.view(c, w // (2 * j), 2, j)
+    i4 = ids.view(c, w // (2 * j), 2, j)
+    lo, hi = k4[:, :, 0], k4[:, :, 1]
+    swap = torch.where(desc.view(w // (2 * j), 2, j)[:, 0], lo < hi, lo > hi)
+    keys = torch.stack([torch.where(swap, hi, lo), torch.where(swap, lo, hi)], dim=2)
+    ids = torch.stack([torch.where(swap, i4[:, :, 1], i4[:, :, 0]),
+                       torch.where(swap, i4[:, :, 0], i4[:, :, 1])], dim=2)
+    return ids.view(c, w), keys.view(c, w)
+
+
+def bitonic_prune_topk(
+    ids: torch.Tensor, keys: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TPU kernel's top-k network on ``[C, W]`` rows (W and k powers of
+    two, k <= W; ``keys`` -inf in dead slots): the first k slots of each
+    row in the network's order, descending, ties where the network leaves
+    them.
+
+    k = W: a bitonic sort, descending.  Else k-blocks are sorted ascending
+    and descending in turn; then, log2(W/k) times, each pair of blocks
+    keeps the larger of each two slots k apart (the first block's on a tie)
+    and the survivors, a bitonic sequence, are merged back into blocks of
+    alternating direction, descending in the last round."""
+    c, w = keys.shape
+    pos = torch.arange(w, device=keys.device)
+    if k == w:
+        size = 2
+        while size <= w:
+            j = size // 2
+            while j >= 1:
+                ids, keys = _exchange(ids, keys, j, (pos & size) == 0)
+                j //= 2
+            size *= 2
+        return ids, keys
+    size = 2
+    while size <= k:
+        j = size // 2
+        while j >= 1:
+            ids, keys = _exchange(ids, keys, j, (pos & size) != 0)
+            j //= 2
+        size *= 2
+    while w > k:
+        k4 = keys.view(c, w // (2 * k), 2, k)
+        i4 = ids.view(c, w // (2 * k), 2, k)
+        take = k4[:, :, 1] > k4[:, :, 0]
+        keys = torch.where(take, k4[:, :, 1], k4[:, :, 0]).reshape(c, w // 2)
+        ids = torch.where(take, i4[:, :, 1], i4[:, :, 0]).reshape(c, w // 2)
+        w //= 2
+        desc = (pos[:w] & k) != 0 if w > k else torch.ones_like(pos[:w], dtype=torch.bool)
+        j = k // 2
+        while j >= 1:
+            ids, keys = _exchange(ids, keys, j, desc)
+            j //= 2
+    return ids, keys
+
+
 def merge_topl_plain(
     ids: torch.Tensor, scores: torch.Tensor, l_pad: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch (same contract)."""
+    """The kernel's function in plain PyTorch (same contract): the TPU
+    kernel's three steps (module doc)."""
+    ids = torch.where(ids < 0, torch.full_like(ids, PAD_ID), ids)
     ids_s, sc_s = sort_rows_by_id(ids, scores)
-    # one slot per run, in id order: each run's last slot writes its id and
-    # total to the run's index; the other slots write to a spare column that
-    # is dropped.  Slots past the row's run count stay PAD.
-    c, w = ids_s.shape
-    slot = torch.where(run_ends(ids_s), run_index(ids_s), w)
-    run_ids = torch.full((c, w + 1), PAD_ID, dtype=ids_s.dtype, device=ids_s.device)
-    run_ids = run_ids.scatter_(-1, slot, ids_s)[:, :w]
-    run_sc = torch.zeros((c, w + 1), dtype=torch.float32, device=ids_s.device)
-    run_sc = run_sc.scatter_(-1, slot, run_sums(ids_s, sc_s))[:, :w]
-    live = (run_ids >= 0) & (run_ids != PAD_ID)
-    key = torch.where(live, run_sc, torch.full_like(run_sc, float("-inf")))
-    top_key, top_pos = torch.topk(key, l_pad, dim=-1, largest=True, sorted=True)
-    top_live = top_key > float("-inf")
-    out_ids = torch.where(
-        top_live, torch.gather(run_ids, -1, top_pos), torch.full_like(top_pos, -1)
-    ).to(torch.int32)
-    out_scores = torch.where(top_live, top_key, torch.zeros_like(top_key))
-    return out_ids, out_scores
+    # each live run's total at its last slot; + 0.0 makes a -0.0 total +0.0,
+    # as the TPU kernel's scan does
+    live = run_ends(ids_s) & (ids_s != PAD_ID)
+    totals = run_sums(ids_s, sc_s) + 0.0
+    keys = torch.where(live, totals, torch.full_like(totals, float("-inf")))
+    out_ids, top = bitonic_prune_topk(ids_s, keys, l_pad)
+    top_live = top > float("-inf")
+    out_ids = torch.where(top_live, out_ids, torch.full_like(out_ids, -1))
+    return out_ids, torch.where(top_live, top, torch.zeros_like(top))
 
 
 def _check(ids: torch.Tensor, scores: torch.Tensor, l_pad: int) -> None:
@@ -196,6 +267,7 @@ def fused_merge_topl(
     out_scores = torch.empty((c, l_pad), dtype=torch.float32, device=ids.device)
     if c == 0:
         return out_ids, out_scores
+    ties = _tie_counter("fused_merge_topl", c, ids.device)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ppr_merge_topl(
@@ -203,7 +275,8 @@ def fused_merge_topl(
             ctypes.c_void_p(scores.data_ptr()),
             ctypes.c_void_p(out_ids.data_ptr()),
             ctypes.c_void_p(out_scores.data_ptr()),
-            c, w, l_pad, ctypes.c_void_p(stream),
+            c, w, l_pad, ctypes.c_void_p(None if ties is None else ties.data_ptr()),
+            ctypes.c_void_p(stream),
         )
     _raise_on_error(lib, err, f"merge_topl [{c}, {w}] -> {l_pad}")
     fused_merge_topl.launches[(w, l_pad)] += 1
@@ -366,13 +439,14 @@ def gather_merge_topl(
     def ptr(x):
         return ctypes.c_void_p(None if x is None else x.data_ptr())
 
+    ties = _tie_counter("gather_merge_topl", c, succ.device)
     with torch.cuda.device(succ.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ppr_gather_merge_topl(
             ptr(basket_ids), ptr(basket_scores), basket_ids.shape[0],
             basket_ids.shape[1], ptr(succ), d, ptr(opt[0]), ptr(scale),
             ptr(opt[1]), ptr(opt[2]), ptr(out_ids), ptr(out_scores),
-            c, L, l_pad, ctypes.c_void_p(stream),
+            c, L, l_pad, ptr(ties), ctypes.c_void_p(stream),
         )
     w2 = max(next_pow2(w), l_pad)
     _raise_on_error(lib, err, f"gather_merge_topl [{c}, {w}] -> {l_pad}")
@@ -384,3 +458,44 @@ def gather_merge_topl(
 # them with .clear().
 fused_merge_topl.launches = collections.Counter()
 gather_merge_topl.launches = collections.Counter()
+
+# While counting is on: by entry, [rows launched, {device: int64[2]}], the
+# kernel's two counters of the rows that took its prune network (step 4d
+# of csrc/merge_topl.cu), the first when the cut split a run of equal
+# totals, the second when only survivors repeated a total.
+_tie_counts: Optional[dict] = None
+
+
+def count_tied_rows(on: bool = True) -> None:
+    """Start counting the kernel's tied rows from zero (``on``), or stop.
+    Off by default: on, each launch passes the kernel its counters, and
+    each tied row adds one atomically."""
+    global _tie_counts
+    _tie_counts = {} if on else None
+
+
+def tied_row_counts() -> dict:
+    """By entry, since :func:`count_tied_rows`: ``rows`` launched,
+    ``split`` (tied rows whose cut split a run of equal totals) and
+    ``repeat_only`` (tied rows whose survivors alone repeated a total).
+    Reads the card's counters, so it waits for their launches."""
+    out = {}
+    for name, (rows, counters) in (_tie_counts or {}).items():
+        split = repeat = 0
+        for buf in counters.values():
+            s, r = buf.tolist()
+            split, repeat = split + s, repeat + r
+        out[name] = {"rows": rows, "split": split, "repeat_only": repeat}
+    return out
+
+
+def _tie_counter(entry: str, rows: int, device: torch.device) -> Optional[torch.Tensor]:
+    """The counters a launch of ``rows`` rows passes its kernel, or None
+    when counting is off."""
+    if _tie_counts is None:
+        return None
+    seen = _tie_counts.setdefault(entry, [0, {}])
+    seen[0] += rows
+    if device not in seen[1]:
+        seen[1][device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return seen[1][device]

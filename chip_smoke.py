@@ -5,10 +5,13 @@
 
 Builds the fused merge kernel from the repository's sources and holds both
 of its entries (the matrix entry ``fused_merge_topl`` and the gather entry
-``gather_merge_topl``) against their plain PyTorch versions on the card,
-checks that their output is bitwise deterministic and free of the order of
-a row's candidates, and times them.  Then it drives the port's main paths,
-counting each entry's launches in each:
+``gather_merge_topl``) against their plain PyTorch versions on the card:
+modulo ties on rows of random scores, and bitwise (ids, score bits and
+order) on rows of exact sums whose totals tie, at every instantiation of
+the kernel; checks that their output is bitwise deterministic and free of
+the order of a row's candidates, and times them, tied rows beside untied.
+Then it drives the port's main paths, counting each entry's launches in
+each:
 
 * phase 2: sparse GRank on the bundled Eat graph, scored against the exact
   oracle, with the gather entry held and timed on the warm-up's real
@@ -18,8 +21,10 @@ counting each entry's launches in each:
 * phase 4: MCCompletePathV2 on Eat (K=50, L=200, R=1000), scored against
   the oracle beside the sort pipeline, with the walks' checks (one chunk's
   trace bitwise equal on the card and the CPU, threefry bits equal on
-  both, trace and counts engines equal, two runs of one seed equal) and
-  the kernel entries held and timed at the MC path's own shapes;
+  both, trace and counts engines equal, two runs of one seed equal, the
+  walk baskets' digest equal to the CPU plain pipeline's on the same
+  walks) and the kernel entries held and timed at the MC path's own
+  shapes;
 * phase 5: the walks alone (R=200) on the phase 3 graph;
 * phase 6: the dense engine: (a) GRank on Eat, timed, its FLOP rate and
   quality; (b) dense (float32, exact truncation) against sparse on Eat,
@@ -37,10 +42,14 @@ counting each entry's launches in each:
   (``examples/*_torch.py``): ``run_eat_torch`` at full Eat scale,
   ``run_synthetic_torch``, ``run_sharded_torch`` and ``bench_ring_torch``
   at reduced sizes, and the north star, ``run_scale_torch`` at 4.8M nodes
-  and 69M edges, held to the TPU run's quality on the same graph.
+  and 69M edges, held to the TPU run's quality on the same graph, its MC
+  jaccard printed beside the TPU's.
 
 Phases 2, 3, 4 and 8f print the sha256 of their final baskets (the ids'
-bytes and the scores' bits), so two trees' runs can be held bit for bit.
+bytes and the scores' bits), so two trees' runs can be held bit for bit,
+and the share of each entry's rows that took the kernel's prune network
+for ties (step 4d of ``csrc/merge_topl.cu``), by cause: the cut split a
+run of equal totals, or only survivors repeated one.
 Phases 2-4 name ``engine="sparse"``.  Each phase (each part of phase 6)
 prints one JSON line; any failure exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -76,6 +85,21 @@ EAT_NODES = 23132
 # The hub group level at L=100: groups of 81 successors, top 200 of l_pad 256,
 # no self entry.
 HUB_GROUP = (81, 1024, 200, 256)
+# Rows whose sums are exact (dyadic scores from TIE_VALUES, TIE_NODES ids in
+# the gather entry's baskets): each entry must equal its plain version bit
+# for bit, ties included.  Matrix entry: every network width at l_pad 128-512,
+# the ends of the contract, and GRank's and MC's widest shapes; gather entry
+# (D, Lb, L, l_pad, self entry): the network at 256-4096, the run merge at
+# 8192 (GRank, the MC combine, a hub group), a row as wide as l_pad, and runs
+# over 512 (the network at 8192).
+TIE_VALUES = np.array([0.25, 0.5, 1.0], dtype=np.float32)
+TIE_NODES = 3000
+TIE_L_PADS = (128, 256, 512)
+TIE_SHAPES = ((8192, 517, 128), (4096, 1048, 128), (8192, 512, 256))
+TIE_GATHER = ((5, 50, 50, 128, True), (10, 100, 100, 128, True), (20, 100, 100, 256, True),
+              (40, 100, 100, 128, True), (81, 100, 100, 128, True), (40, 200, 200, 256, True),
+              (40, 200, 400, 512, False), (20, 20, 300, 512, True), (15, 520, 100, 128, True))
+TIE_ROWS = 256
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit operations/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -91,6 +115,9 @@ MC_REPEATS = 3
 MC_UNROLL = 32  # hops per macro step of the walks (ops/walk.py default)
 # the walks at 1M nodes (bench.py's scale run): L, R
 WALK_L, WALK_R = 100, 200
+# phase 8f: the v5e TPU's MC jaccard on the same graph and config (the JAX
+# package's docs/PERF.md, round 5)
+TPU_V5E_MC_JACCARD = 0.9449
 # phase 6, the dense engine: timed calls per measurement; the auto cutoff's
 # graph (16,384 nodes at Eat's 13.5 edges a node); H100 SXM dense bf16 peak
 DENSE_REPEATS = 3
@@ -139,6 +166,47 @@ def kernel_cases(w: int, rows: int, rng: np.random.Generator, pad_id: int):
         ids[r] = ids[r, perm]
         scores[r] = scores[r, perm]
     return ids, scores
+
+
+def untied_rows(w: int, rows: int, rng: np.random.Generator, pad_id: int):
+    """[rows, w] rows like a GRank chunk's: ids from Eat's node count, 15%
+    dead, scores drawn at random (so totals seldom tie)."""
+    ids = rng.integers(0, EAT_NODES, (rows, w)).astype(np.int32)
+    ids[rng.random((rows, w)) < 0.15] = pad_id
+    return ids, (rng.random((rows, w)) / w).astype(np.float32)
+
+
+def tied_rows(w: int, rows: int, rng: np.random.Generator, pad_id: int):
+    """[rows, w] candidate rows with scores of three dyadic values, so that
+    every run sum is exact and totals tie within rows, at the cut and among
+    the survivors: a live share of 1/8 to all of a row, ids drawn from a
+    third of the live count (runs of about three)."""
+    ids = np.full((rows, w), pad_id, dtype=np.int32)
+    scores = np.zeros((rows, w), dtype=np.float32)
+    for r in range(rows):
+        live = int(rng.integers(max(1, w // 8), w + 1))
+        ids[r, :live] = rng.integers(0, max(2, live // 3), live)
+        scores[r, :live] = rng.choice(TIE_VALUES, live)
+        perm = rng.permutation(w)
+        ids[r], scores[r] = ids[r, perm], scores[r, perm]
+    return ids, scores
+
+
+def tied_gather_inputs(rng: np.random.Generator, c: int, d: int, lb: int, dev):
+    """Like gather_inputs, with exact sums: baskets [TIE_NODES, lb] of
+    distinct ids and dyadic scores, rows of ragged degree, per-row scales
+    that are powers of two, dyadic self scores, and a post-scale."""
+    ids = np.stack([rng.permutation(TIE_NODES)[:lb] for _ in range(TIE_NODES)]).astype(np.int32)
+    ids[rng.random((TIE_NODES, lb)) < 0.1] = -1
+    sc = np.where(ids >= 0, rng.choice(TIE_VALUES / 16, (TIE_NODES, lb)), 0).astype(np.float32)
+    succ = rng.integers(0, TIE_NODES, (c, d)).astype(np.int64)
+    deg = rng.integers(d // 2 + 1, d + 1, c)
+    succ[np.arange(d)[None, :] >= deg[:, None]] = -1
+    rows = rng.integers(0, TIE_NODES, c).astype(np.int64)
+    scale = (2.0 ** -rng.integers(0, 4, c)).astype(np.float32)
+    self_sc = rng.choice(TIE_VALUES, c).astype(np.float32)
+    post = rng.random(c).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (ids, sc, succ, rows, scale, self_sc, post)]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -359,12 +427,11 @@ def phase_kernel():
     check(same_bits(again, first), "gather entry: two launches differ")
     check(same_bits(permuted, first), "gather entry: permuted successors change the output")
 
+    tied, tied_timings = tied_checks(rng, dev)
+
     timings = []
     for w, c in EAT_SHAPES:
-        ids_np = rng.integers(0, EAT_NODES, (c, w)).astype(np.int32)
-        ids_np[rng.random((c, w)) < 0.15] = mk.PAD_ID
-        ids = torch.as_tensor(ids_np, device=dev)
-        sc = torch.as_tensor(rng.random((c, w)).astype(np.float32) / w, device=dev)
+        ids, sc = (torch.as_tensor(x, device=dev) for x in untied_rows(w, c, rng, mk.PAD_ID))
         work = matrix_work(ids, 128, mk.PAD_ID)
         b_ms, b_by = bound_ms(*work)
         timings.append({"entry": "matrix", "W": w, "C": c, "l_pad": 128,
@@ -392,8 +459,87 @@ def phase_kernel():
                         "bound_bytes": work[0], "bound_ops": work[1]})
     emit({"phase": 1, "atol": ATOL, "max_abs_err": max_err,
           "gather_max_abs_err": g_err, "bitwise_checks": "passed",
+          "tied_bitwise_cases": tied, "tied_timings": tied_timings,
           "cases": cases, "gather_cases": g_cases, "timings": timings})
     return max_err, g_err, timings
+
+
+def tie_causes(ids: np.ndarray, scores: np.ndarray, l_pad: int, pad_id: int) -> list:
+    """[split, repeat only]: the rows of exact sums whose top-``l_pad`` cut
+    splits a run of equal totals, and the other rows whose survivors repeat
+    a total (the kernel's two tied-row counters)."""
+    split = repeat = 0
+    for r_ids, r_sc in zip(ids, scores):
+        live = r_ids != pad_id
+        uniq, inv = np.unique(r_ids[live], return_inverse=True)
+        tot = -np.sort(-np.bincount(inv, weights=r_sc[live].astype(np.float64)))
+        if tot.size > l_pad and np.sum(tot == tot[l_pad - 1]) > np.sum(tot[:l_pad] == tot[l_pad - 1]):
+            split += 1
+        elif np.any(tot[:l_pad][1:] == tot[:l_pad][:-1]):
+            repeat += 1
+    return [split, repeat]
+
+
+def tied_checks(rng: np.random.Generator, dev) -> tuple:
+    """Phase 1's rows with exact sums: each entry bitwise equal to its plain
+    version on the card (ids, score bits and order) at every instantiation,
+    and the shapes of the main path timed on tied rows beside untied ones.
+    Returns (the cases checked, the timings)."""
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+
+    kernel, plain = mk.fused_merge_topl, mk.merge_topl_plain
+    gather, gather_plain = mk.gather_merge_topl, mk.gather_merge_topl_plain
+    cases, timings = [], []
+    matrix = [(w, TIE_ROWS, lp) for w in WIDTHS for lp in TIE_L_PADS if lp <= w]
+    matrix += [(w, TIE_ROWS, lp) for w, lp in EDGE_CASES] + list(TIE_SHAPES)
+    for w, c, l_pad in matrix:
+        ids_np, sc_np = tied_rows(w, c, rng, mk.PAD_ID)
+        ids, sc = torch.as_tensor(ids_np, device=dev), torch.as_tensor(sc_np, device=dev)
+        check(same_bits(kernel(ids, sc, l_pad), plain(ids, sc, l_pad)),
+              f"matrix entry, tied rows ({w}, {c}, {l_pad}): not bitwise its plain version")
+        cases.append({"entry": "matrix", "W": w, "C": c, "l_pad": l_pad})
+        if (w, c, l_pad) in TIE_SHAPES:
+            untied = [torch.as_tensor(x, device=dev)
+                      for x in untied_rows(w, c, rng, mk.PAD_ID)]
+            mk.count_tied_rows(True)
+            kernel(ids, sc, l_pad)
+            counts = mk.tied_row_counts()["fused_merge_topl"]
+            want = tie_causes(ids_np, sc_np, l_pad, mk.PAD_ID)
+            check([counts["split"], counts["repeat_only"]] == want,
+                  f"matrix entry, tied rows ({w}, {c}, {l_pad}): the kernel counted "
+                  f"{counts}, the rows hold {want} (split, repeat only)")
+            mk.count_tied_rows(True)
+            kernel(*untied, l_pad)
+            untied_counts = mk.tied_row_counts()["fused_merge_topl"]
+            mk.count_tied_rows(False)
+            timings.append({"entry": "matrix", "W": w, "C": c, "l_pad": l_pad,
+                            "tied_rows": counts, "untied_rows_tied": untied_counts,
+                            "tied_ms": time_ms(lambda: kernel(ids, sc, l_pad), 20),
+                            "untied_ms": time_ms(lambda: kernel(*untied, l_pad), 20)})
+    for d, lb, out_l, l_pad, self_entry in TIE_GATHER:
+        b_ids, b_sc, succ, rows, scale, self_sc, post = tied_gather_inputs(
+            rng, TIE_ROWS, d, lb, dev)
+        if not self_entry:
+            self_sc, post = None, None
+        args = (b_ids, b_sc, succ, rows, scale, self_sc, post, out_l, l_pad)
+        check(same_bits(gather(*args), gather_plain(*args)),
+              f"gather entry, tied rows (D {d}, Lb {lb}, l_pad {l_pad}): "
+              "not bitwise its plain version")
+        w = d * lb + int(self_entry)
+        cases.append({"entry": "gather", "W": max(mk.next_pow2(w), l_pad), "D": d,
+                      "Lb": lb, "C": TIE_ROWS, "l_pad": l_pad, "self_entry": self_entry})
+    # the gather entry at Eat's widest bucket: tied rows beside GRank-like ones
+    d, c = EAT_BUCKETS[0]
+    b_ids, b_sc, succ, rows, scale, self_sc, post = tied_gather_inputs(rng, c, d, L, dev)
+    t_args = (b_ids, b_sc, succ, rows, scale, self_sc, post, L, 128)
+    check(same_bits(gather(*t_args), gather_plain(*t_args)),
+          "gather entry, tied rows at Eat's widest bucket: not bitwise its plain version")
+    u_ids, u_sc, u_succ, u_rows = gather_inputs(rng, c, d, dev)
+    u_args = (u_ids, u_sc, u_succ, u_rows, *grank_scales(u_succ), L, 128)
+    timings.append({"entry": "gather", "D": d, "C": c, "l_pad": 128,
+                    "tied_ms": time_ms(lambda: gather(*t_args), 20),
+                    "untied_ms": time_ms(lambda: gather(*u_args), 20)})
+    return cases, timings
 
 
 def launch_counts():
@@ -411,6 +557,24 @@ def clear_counts() -> None:
 
 def read_counts() -> dict:
     return {name: dict(c) for name, c in launch_counts().items()}
+
+
+def start_tie_counts() -> None:
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+
+    mk.count_tied_rows(True)
+
+
+def read_tie_counts() -> dict:
+    """Each entry's rows since start_tie_counts, and the shares of them
+    that took the kernel's prune network, by cause; counting stops."""
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+
+    counts = mk.tied_row_counts()
+    mk.count_tied_rows(False)
+    return {name: {**c, "split_share": c["split"] / max(c["rows"], 1),
+                   "repeat_only_share": c["repeat_only"] / max(c["rows"], 1)}
+            for name, c in counts.items()}
 
 
 def launches_json(counts: dict) -> dict:
@@ -439,6 +603,7 @@ def phase_eat() -> dict:
     real_state = real_state_timing(graph, state, 0, "eat after 2 half-sweeps")
     del state
     clear_counts()
+    start_tie_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     baskets, info = grank_baskets(graph, K, L, ITERS, DAMPING, TOL, engine="sparse",
@@ -446,6 +611,7 @@ def phase_eat() -> dict:
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = read_counts()
+    ties = read_tie_counts()
     peak = torch.cuda.max_memory_allocated()
     check(sum(launches["gather_merge_topl"].values()) > 0,
           "the Eat run launched no gather merge kernel")
@@ -474,7 +640,7 @@ def phase_eat() -> dict:
           "edges": graph.num_edges, "wall_s": wall, "walls_s": walls,
           "iterations_ran": iters,
           "basket_merges_per_s": measured_merges(graph, iters) / wall,
-          "kernel_launches": launches_json(launches),
+          "kernel_launches": launches_json(launches), "tied_rows": ties,
           "peak_bytes": peak, "sort_wall_s": sort_wall,
           "sort_iterations_ran": sort_info["iterations_ran"],
           "baskets_sha256": digest, "gather_real_state": real_state,
@@ -513,6 +679,7 @@ def phase_scale() -> tuple:
     setup_s = time.perf_counter() - t0
     check(hub_rows > 0, "the 1M graph has no hub rows")
     clear_counts()
+    start_tie_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, info = grank_baskets(big, K, L, 2, DAMPING, -1.0, engine="sparse",
@@ -520,6 +687,7 @@ def phase_scale() -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    ties = read_tie_counts()
     peak = torch.cuda.max_memory_allocated()
     # the hub group level, through the gather entry at l_pad 256
     wide = sum(v for (w, lp), v in launches["gather_merge_topl"].items() if lp == 256)
@@ -537,7 +705,7 @@ def phase_scale() -> tuple:
           "setup_s": setup_s, "wall_s": wall,
           "iterations_ran": info["iterations_ran"], "peak_bytes": peak,
           "hub_rows": int(hub_rows), "hub_group_gather_launches": wide,
-          "kernel_launches": launches_json(launches),
+          "kernel_launches": launches_json(launches), "tied_rows": ties,
           "basket_merges_per_s": measured_merges(big, 2) / wall,
           "baskets_sha256": digest, "gather_real_state": real_state})
     check(wide > 0, "no hub group (gather, l_pad=256) launches at 1M nodes")
@@ -605,6 +773,34 @@ def mc_walk_checks(graph) -> dict:
             // (MC_UNROLL * slots) + 1,
             "chunk0_cpu_s": out["cpu_s"], "chunk0_cuda_s": out["cuda_s"],
             "trace": trace, "sources": srcs}
+
+
+def cpu_walk_sha256(graph) -> str:
+    """sha256 of phase 4's walk baskets (L=MC_L, R=MC_R, seed 1) as the
+    CPU's kernel pipeline cuts them: every chunk's trace walked on the card
+    (bitwise the CPU's, mc_walk_checks), its top-L taken on the CPU by the
+    kernel's plain version, in walk_trace_basket_chunks' order."""
+    from approximated_personalized_pagerank_tpu_torch.ops import walk as tw
+    from approximated_personalized_pagerank_tpu_torch.ops.basket import Baskets
+    from approximated_personalized_pagerank_tpu_torch.utils.compare import basket_sha256
+
+    n = graph.num_nodes
+    chunk, row_chunk, slots, total, macro, _ = tw._trace_chunks(
+        n, MC_R, DAMPING, None, None, MC_UNROLL)
+    dg = graph.device_graph("cuda")
+    root = tw._root_key(1)
+    damping_t = torch.tensor(DAMPING, dtype=torch.float32, device="cuda")
+    r_total = torch.tensor(float(MC_R))
+    ids, scores = [], []
+    for s0 in range(0, n, chunk):
+        sources, real = tw._chunk_sources(s0, n, chunk, "cuda")
+        trace, _ = tw.walk_trace_chunk(dg.start_deg, dg.indices, sources, tw.fold_in(root, s0),
+                                       damping_t, total, slots, macro, MC_UNROLL)
+        top = tw._trace_topl(trace[:real].cpu(), sources[:real].cpu(), r_total, MC_L,
+                             row_chunk, "kernel")
+        ids.append(top.ids)
+        scores.append(top.scores)
+    return basket_sha256(Baskets(torch.cat(ids), torch.cat(scores)))
 
 
 def mc_kernel_shapes(graph, walk, trace, sources) -> tuple:
@@ -722,6 +918,7 @@ def phase_mc() -> dict:
     mccompletepathv2_baskets(*args, seed=0, engine="sparse")
     torch.cuda.synchronize()
     clear_counts()
+    start_tie_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     baskets, info = mccompletepathv2_baskets(*args, seed=1, engine="sparse",
@@ -729,6 +926,7 @@ def phase_mc() -> dict:
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = read_counts()
+    ties = read_tie_counts()
     peak = torch.cuda.max_memory_allocated()
     check(launches["fused_merge_topl"].get((8192, 256), 0) > 0,
           "the Eat MC run launched no matrix entry at W=8192, l_pad=256")
@@ -764,6 +962,10 @@ def phase_mc() -> dict:
     digest = basket_sha256(baskets)
     walks = mc_walk_checks(graph)
     timings = mc_kernel_shapes(graph, walk, walks.pop("trace"), walks.pop("sources"))
+    walk_digest = basket_sha256(walk)
+    t0 = time.perf_counter()
+    cpu_walk_digest = cpu_walk_sha256(graph)
+    cpu_walk_s = time.perf_counter() - t0
     emit({"phase": 4, "graph": "eat", "algorithm": "mccompletepathv2",
           "K": MC_K, "L": MC_L, "R": MC_R, "wall_s": wall, "walls_s": walls,
           "walk_wall_s": walk_wall, "walk_walls_s": walk_walls,
@@ -771,8 +973,10 @@ def phase_mc() -> dict:
           "walk_steps_per_s": info["walk_steps"] / walk_wall,
           "abandoned_walks": info["abandoned_walks"], "total_walks": info["total_walks"],
           "abandoned_share": info["abandoned_walks"] / info["total_walks"],
-          "kernel_launches": launches_json(launches), "peak_bytes": peak,
-          "sort_wall_s": sort_wall, "baskets_sha256": digest,
+          "kernel_launches": launches_json(launches), "tied_rows": ties,
+          "peak_bytes": peak, "sort_wall_s": sort_wall, "baskets_sha256": digest,
+          "walk_baskets_sha256": walk_digest, "cpu_walk_baskets_sha256": cpu_walk_digest,
+          "cpu_walk_baskets_s": cpu_walk_s,
           "jaccard_average": stats["jaccard average"],
           "jaccard_min": stats["jaccard min"],
           "recall_average": stats["recall average"],
@@ -781,6 +985,8 @@ def phase_mc() -> dict:
           "sort_recall_average": sort_stats["recall average"],
           "sort_kendall_average": sort_stats["kendall average"],
           "walk_checks": "passed", **walks, "timings": timings})
+    check(walk_digest == cpu_walk_digest,
+          "the card's walk baskets differ from the CPU plain pipeline's on the same walks")
     check(stats["jaccard average"] >= 0.94, "Eat MC jaccard_average < 0.94")
     check(abs(stats["jaccard average"] - sort_stats["jaccard average"]) <= 0.01,
           "kernel and sort pipelines' MC jaccard differ by more than 0.01")
@@ -1338,9 +1544,11 @@ def run_sums_repeat(smi: str) -> None:
         a = tb.Baskets(merged[0].ids[:half], merged[0].scores[:half])
         b = tb.Baskets(merged[0].ids[half:], merged[0].scores[half:])
         l1 = [tb.norm1_rows(a, b) for _ in range(3)]
-        pw = min(mk.next_pow2(w), mk.MAX_KERNEL_WIDTH)
-        p_ids = torch.where(ids[:, :pw] < 0, mk.PAD_ID, ids[:, :pw])
-        plain = [mk.merge_topl_plain(p_ids, sc[:, :pw], 128) for _ in range(3)]
+        # the matrix entry's input: the first 8192 columns at most, padded
+        # to a power of two as the kernel pipeline pads a row
+        p_ids, p_sc = mk.pad_candidates(ids[:, :mk.MAX_KERNEL_WIDTH],
+                                        sc[:, :mk.MAX_KERNEL_WIDTH], 128)
+        plain = [mk.merge_topl_plain(p_ids, p_sc, 128) for _ in range(3)]
         same = (all(same_baskets(m, merged[0]) for m in merged)
                 and all(torch.equal(x.view(torch.int32), l1[0].view(torch.int32)) for x in l1)
                 and all(same_bits(x, plain[0]) for x in plain))
@@ -1506,13 +1714,18 @@ def north_star(smi: str) -> dict:
     """Phase 8f: the north star, examples/run_scale_torch.py::run_scale at
     full size (4.8M nodes, 69M edges, locality 0.8; GRank K=50, L=100, 30
     half-sweeps, tol 1e-4; MC mc_l=100, R=200; 32 strict sources), each
-    stage's line forwarded as it ends.  Held to the TPU run on the same
-    graph up to tie noise.  Returns its launches."""
+    stage's line forwarded as it ends, the timed GRank's and MC's with
+    their tied rows.  Held to the TPU run on the same graph up to tie
+    noise.  Returns its launches."""
     mod = load_example("run_scale_torch")
     stages = {}
 
     def forward(line: str) -> None:
         stage = json.loads(line)
+        if stage["stage"] in ("grank", "mc"):
+            stage["tied_rows"] = read_tie_counts()
+        if stage["stage"] in ("grank_warmup", "grank"):
+            start_tie_counts()
         stages[stage["stage"]] = stage
         emit_examples("f: north star stage", smi, stage)
 
@@ -1521,7 +1734,8 @@ def north_star(smi: str) -> dict:
                                             digests=True))
     launches = read_counts()
     emit_examples("f: north star", smi, {
-        "wall_s": wall, **out, "peak_allocated_bytes": {
+        "wall_s": wall, **out, "tpu_v5e_mc_jaccard": TPU_V5E_MC_JACCARD,
+        "peak_allocated_bytes": {
             k: v["peak_allocated_bytes"] for k, v in stages.items()},
         "kernel_launches": launches_json(launches)})
     check((out["scale_full_nodes"], out["scale_full_edges"]) == (4_800_000, 69_000_000),

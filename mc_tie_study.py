@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """MCCompletePathV2 on one power-law graph through both packages, on the CPU.
 
-    python3 mc_tie_study.py run jax-sort|jax-bitonic|port [--nodes N] [--seed S]
+    python3 mc_tie_study.py run jax-sort|jax-bitonic|jax-pallas|port|port-kernel [--nodes N] [--seed S]
     python3 mc_tie_study.py compare [--nodes N]
     python3 mc_tie_study.py walks [--nodes N]
 
@@ -11,14 +11,19 @@ JAX package's by more than the cut of tied visit counts.  ``run`` builds
 ``powerlaw_graph(N, 14.375 N, seed=7, locality=0.8)`` (the north star's
 edge density), runs MC and scores it against the exact oracle with its own
 package's harness, and saves the baskets and figures under
-``build/mc_tie_study/``.  ``jax-sort`` and ``jax-bitonic`` run the JAX package
-with that merge pipeline in every merge, the walks' trace top-L included
-(through ``PPR_MERGE_ALGO``: the JAX package does not pass ``merge_algo`` to
-the trace top-L); ``bitonic`` is the network of the TPU kernel, whose top-L
-cuts ties by position.  ``port`` runs the port on the CPU (its sort
-pipeline).  ``--seed`` (default 1) is MC's seed; other seeds give the
+``build/mc_tie_study/``.  ``jax-sort``, ``jax-bitonic`` and ``jax-pallas``
+run the JAX package with that merge pipeline in every merge, the walks'
+trace top-L included (through ``PPR_MERGE_ALGO``: the JAX package does not
+pass ``merge_algo`` to the trace top-L): ``sort`` cuts ties as
+``lax.top_k`` does (equal counts to the smaller id), ``bitonic`` by the
+full descending network of ``bitonic_merge_topk``, and ``pallas`` is the
+TPU kernel itself (``bitonic_prune_topk`` after the run sums, in interpret
+mode on the CPU).  ``port`` runs the port on the CPU with its sort
+pipeline, ``port-kernel`` with its kernel pipeline (the plain versions of
+the merge kernel, which cut ties as the TPU kernel does).  ``--seed`` (default 1) is MC's seed; other seeds give the
 spread of the quality figures.  ``compare`` prints each run's quality and, row by row, how many
-of the port's ids each JAX run shares.  ``walks`` walks every source chunk
+of the port's ids each JAX run shares, and how many of ``port-kernel``'s
+rows equal ``jax-pallas``'s.  ``walks`` walks every source chunk
 of seed 1 through both packages' trace engines and counts the rows whose
 traces differ.  Each mode runs in a process of its own, as the JAX
 pipeline is fixed when the package is imported.
@@ -37,7 +42,7 @@ import numpy as np
 K, MC_L, MC_R, DAMPING, TEST_NODES = 50, 100, 200, 0.85, 32
 EDGES_PER_NODE = 69_000_000 / 4_800_000
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mc_tie_study")
-MODES = ("jax-sort", "jax-bitonic", "port")
+MODES = ("jax-sort", "jax-bitonic", "jax-pallas", "port", "port-kernel")
 
 
 def _path(mode: str, nodes: int, seed: int = 1) -> str:
@@ -46,15 +51,18 @@ def _path(mode: str, nodes: int, seed: int = 1) -> str:
 
 def run(mode: str, nodes: int, seed: int) -> dict:
     edges = int(round(nodes * EDGES_PER_NODE))
-    if mode == "port":
+    if mode.startswith("port"):
         from approximated_personalized_pagerank_tpu_torch import (
             benchmark_sampled, mccompletepathv2_baskets, sample_result,
         )
         from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
+        algo = "kernel" if mode == "port-kernel" else "sort"
+
         def mc(graph):
             return mccompletepathv2_baskets(graph, K, MC_L, MC_R, DAMPING, seed=seed,
-                                            engine="sparse", return_info=True, device="cpu")
+                                            engine="sparse", return_info=True, device="cpu",
+                                            merge_algo=algo)
     else:
         os.environ["PPR_MERGE_ALGO"] = mode.split("-")[1]
         import jax
@@ -77,7 +85,7 @@ def run(mode: str, nodes: int, seed: int) -> dict:
     ids, scores = np.asarray(baskets.ids), np.asarray(baskets.scores)
     mc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kw = {"device": "cpu"} if mode == "port" else {}
+    kw = {"device": "cpu"} if mode.startswith("port") else {}
     stats = benchmark_sampled([sample_result(baskets, graph, TEST_NODES, True, seed=0)], graph,
                               **kw)[0]
     eval_s = time.perf_counter() - t0
@@ -97,21 +105,19 @@ def compare(nodes: int) -> dict:
     seeds = sorted(f for f in os.listdir(OUT_DIR) if f.startswith(f"port_{nodes}_seed"))
     out["port_jaccard_by_seed"] = {f[:-4].split("seed")[1]: json.loads(str(
         np.load(os.path.join(OUT_DIR, f))["figures"]))["jaccard"] for f in seeds}
-    if "port" in runs:
-        port = runs["port"]["ids"]
-        for m, r in runs.items():
-            if m == "port":
-                continue
-            other = r["ids"]
-            same_rows = int((other == port).all(axis=1).sum())
-            shared = [np.intersect1d(a[a >= 0], b[b >= 0]).size / max(1, (a >= 0).sum())
-                      for a, b in zip(port, other)]
-            out[f"port_vs_{m}"] = {"rows": int(port.shape[0]), "identical_rows": same_rows,
-                                   "mean_shared_id_share": float(np.mean(shared)),
-                                   "min_shared_id_share": float(np.min(shared)),
-                                   "max_abs_score_diff_identical_rows": float(np.abs(
-                                       runs["port"]["scores"] - r["scores"])[
-                                       (other == port).all(axis=1)].max(initial=0.0))}
+    pairs = [("port", m) for m in runs if m != "port"] + [("port-kernel", "jax-pallas")]
+    for a, b in pairs:
+        if a not in runs or b not in runs:
+            continue
+        mine, other = runs[a]["ids"], runs[b]["ids"]
+        same = (other == mine).all(axis=1)
+        shared = [np.intersect1d(x[x >= 0], y[y >= 0]).size / max(1, (x >= 0).sum())
+                  for x, y in zip(mine, other)]
+        out[f"{a}_vs_{b}"] = {"rows": int(mine.shape[0]), "identical_rows": int(same.sum()),
+                              "mean_shared_id_share": float(np.mean(shared)),
+                              "min_shared_id_share": float(np.min(shared)),
+                              "max_abs_score_diff_identical_rows": float(np.abs(
+                                  runs[a]["scores"] - runs[b]["scores"])[same].max(initial=0.0))}
     return out
 
 

@@ -201,7 +201,7 @@ def gather_stages(eat) -> None:
         def launch(fn):
             p = [ctypes.c_void_p(x.data_ptr()) for x in tensors]
             err = fn(p[0], p[1], state.ids.shape[0], width, p[2], d, p[3],
-                     p[4], p[5], p[6], p[7], p[8], c, width, l_pad, stream)
+                     p[4], p[5], p[6], p[7], p[8], c, width, l_pad, None, stream)
             if err:
                 raise RuntimeError(f"gather cut launch failed (CUDA error {err})")
         return launch, out, c, d
