@@ -71,28 +71,41 @@
 //        atomics, 4 passes; dead slots take no part) finds the l_pad-th
 //        largest, thr.
 //     4b. A row whose cut splits a run of equal totals is tied.
-//     4c. Otherwise a block prefix scan compacts the survivors into at most
-//        l_pad keys (~total << 32 | id) in shared memory past the row, and
-//        one warp sorts them in registers and shuffles (l_pad <= 256; the
-//        whole block for wider l_pad), descending.  Survivors that repeat a
-//        total are now adjacent: such a row is tied too.  Every other row
-//        has one answer, whatever the rule for ties, and is written.
-//     4d. A tied row runs the prune network itself (tied_topl), in shared
-//        memory over the W slots the sorted row held (64 KB at 8192): each
-//        total is summed again (as in step 3) onto its run's last slot,
-//        which is p, and the totals below thr are left out, which moves no
-//        survivor (a compare of a survivor with a lower total goes one way
-//        either way).  Blocks of the network with no live slot are
-//        skipped, and the prune rounds halve the row in place.  MC's visit
-//        counts tie in nearly every row, and GRank's early states often.
-//        A tied row takes 1.4-1.8x an untied one at the main path's shapes
-//        (chip_smoke.py phase 1, H100 80GB HBM3, 700 W): the network's
-//        stages are block-wide, one barrier each.  A version with the
-//        k-block sorts in
-//        registers and shuffles, one with a warp per k-block (a warp
-//        barrier a stage), one that loads four pairs before comparing
-//        them, and one that visits only pairs holding a live slot (a
-//        bitmap of live slots, a thread a word) were all slower on the card.
+//     4c. The live totals, those above thr and (unless the row has no more
+//        than l_pad) those equal to it, m of them, go to step 4d's map at
+//        their positions p (step 3 keeps each run's last slot), and their
+//        positions to a list, in block-scan order.  Unless the cut splits,
+//        they are the survivors: compacted (~total << 32 | id) into
+//        shared memory past the row, and one warp sorts them in registers
+//        and shuffles (l_pad <= 256; the whole block for wider l_pad),
+//        descending.  Survivors that repeat a total are now adjacent: such
+//        a row is tied too.  Every other row has one answer, whatever the
+//        rule for ties, and is written.
+//     4d. A tied row runs the prune network (tied_topl) on the live totals
+//        alone: the totals below thr never reach the output and move no
+//        live one (a compare of a live total with a lower one goes one
+//        way either way), so they are dead slots.  A stage of the network
+//        is a no-op on two dead slots, and on a dead and a live slot its
+//        result is fixed (the live total is the larger), so the network's
+//        function follows from the live keys' moves alone: each key, in a
+//        register with its slot, reads its partner's slot in a map of the
+//        W slots in shared memory (64 KB at 8192, where the sorted row
+//        was), moves, and writes; a prune round drops its losers.  That is
+//        work in m, not W, and one barrier a stage among ceil(m/32) warps
+//        (a key a lane, up to four).  Most tied GRank rows are repeat
+//        only, m <= l_pad.  Where m is a large share of the row (a cut
+//        inside thousands of equal visit counts) a stage of the live form
+//        costs more than one pass over the row, and for m above n/4
+//        (kLiveShare; n the sort width) the dense network runs instead
+//        (prune_network: block-wide stages in shared memory, one barrier
+//        each, dead k-blocks skipped, the prune rounds halving the row in
+//        place).  On an H100 80GB HBM3 at 700 W (profile_port.py
+//        tiebranch) the two forms are within 3% at m = n/4, the live one
+//        ahead below and 18-19% behind at n/2 (widths 1024-2048); at
+//        GRank's shape (8192, 517, 128) a tied row of m = 128 takes 1.16x
+//        an untied one (the dense network 1.64x).  Two stages a barrier
+//        (a key reads the four slots two stages touch) was slower: past a
+//        few warps the live form is bound by instructions, not barriers.
 //     Slots past the live count are written as (-1, 0).  Ids, scores and
 //     order are bitwise the TPU kernel's wherever the run sums are exact
 //     (visit counts, dyadic scores); elsewhere ties are decided on this
@@ -141,7 +154,8 @@
 //
 // Registers: E=16 keys are 32 registers; __launch_bounds__(512, 2) keeps two
 // 512-thread blocks (W=8192) on an SM, each with 68 KB of dynamic shared
-// memory for the row and 8.5 bytes a slot of l_pad for the survivors (72 KB
+// memory for the row, 8.5 bytes a slot of l_pad for the survivors, and 2.5
+// bytes a slot of the row for the run ends and step 4d's live list (92 KB
 // at l_pad 512), above the 48 KB static limit, hence cudaFuncSetAttribute
 // below.
 
@@ -340,30 +354,6 @@ __device__ __forceinline__ void sort_in_place(int t, int n, uint64_t* s) {
   if (n > 32 * EF) __syncthreads();  // and reads it in another layout
 #pragma unroll
   for (int e = 0; e < EF; ++e) s[t * EF + e] = key[e];
-}
-
-// Step 4d's run totals: each live run's total at the run's last slot, its
-// position in the TPU kernel's row, summed forward from the run's start as
-// step 3 sums it; 0 elsewhere.  Reads the sorted row, sm[pad_idx(0 .. n)].
-template <int E>
-__device__ __forceinline__ void totals_at_ends(const uint64_t* sm, int t, int n,
-                                               uint32_t (&tot)[E],
-                                               uint32_t (&ids)[E]) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = t * E + e;
-    const uint32_t id = key_id(sm[pad_idx(i)]);
-    uint32_t m = 0;
-    if (id != kPadId && (i + 1 == n || key_id(sm[pad_idx(i + 1)]) != id)) {
-      int s0 = i;
-      while (s0 > 0 && key_id(sm[pad_idx(s0 - 1)]) == id) --s0;
-      float s = key_score(sm[pad_idx(s0)]);
-      for (int q = s0 + 1; q <= i; ++q) s += key_score(sm[pad_idx(q)]);
-      m = ordered(s + 0.0f);
-    }
-    tot[e] = m;
-    ids[e] = id;
-  }
 }
 
 struct Gather {
@@ -649,37 +639,164 @@ __device__ __forceinline__ void prune_network(uint64_t* sm, int t, int nt, int w
   }
 }
 
-// Step 4d (the note): the prune network on a tied row, each survivor at
-// its position (code << 32 | id), the rest dead.  A total below thr never
-// reaches the output, and the network moves every total at or above it as
-// it would with the lower ones present (each compare of the two kinds goes
-// one way), so leaving them out changes no survivor's path.  Out of line:
-// only tied rows call it.  Reads the sorted row, dyn_sm[pad_idx(0 .. n)],
-// and overwrites it.
-template <int E>
-__device__ __noinline__ void tied_topl(int t, int nt, int n, int net_width,
-                                       int l_pad, uint32_t thr, int* o_ids,
-                                       float* o_sc, int out_width, float post) {
-  __shared__ int live_end;  // one past the last survivor's position
-  if (t == 0) live_end = 0;
-  uint32_t tot[E];
-  uint32_t ids[E];
-  totals_at_ends<E>(dyn_sm, t, n, tot, ids);
-  __syncthreads();  // every read of the sorted row is done
-  int end = 0;
+// Step 4d's live form (the note): prune_network's function computed on the
+// m live keys alone, by the first nw warps, each lane with K keys: lane t's
+// key[e] is key i = e*32*nw + t of `live` (the positions, in scan order),
+// pos[e] its slot (-1: none).  The map, map[P] over the row's w slots (no
+// padding: the accesses are scattered anyway), holds each live key at its
+// slot and 0 elsewhere, in prune_network's layout (logical slot q at
+// (q / k) * span + q % k), so a partner at distance j < k is slot ^ j and
+// a prune round's partner slot ^ span.  A key reads and writes only its
+// own pair's slots in a stage, and no other pair touches them, so a stage
+// is a map read, a write and one barrier, before the next stage's reads.
+// Once a few warps take part this is bound by the instructions of the
+// keys' stages: the keys are spread one a lane over as many warps as the
+// block has before a lane takes two or four.
+constexpr int kLiveKeysPerLane = 4;  // at most
+// The live form runs while m <= n / kLiveShare (n: the row's sort width);
+// above, the dense network (prune_network) does: the live keys are then a
+// large share of the row, and a stage of the live form costs more than the
+// dense one's pass over it.  Measured on an H100 (PERF.md section 6,
+// `python3 profile_port.py tiebranch`): the two are within 3% at n/4 at
+// widths 1024-8192, and the live form 18-19% behind at n/2.
+constexpr int kLiveShare = 4;
+
+// The most live keys the live form takes in a row of sort width n, nt
+// threads.
+__host__ __device__ constexpr int live_cap(int n, int nt) {
+  return n / kLiveShare < kLiveKeysPerLane * nt ? n / kLiveShare : kLiveKeysPerLane * nt;
+}
+
+// A barrier of the first nw warps.
+__device__ __forceinline__ void group_sync(int nw) {
+  if (nw == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync 1, %0;" ::"r"(nw * 32) : "memory");
+}
+
+// A slot's code: the high word of its key.
+__device__ __forceinline__ uint32_t code_at(const uint64_t* map, int slot) {
+  return reinterpret_cast<const uint32_t*>(map)[2 * slot + 1];
+}
+
+// One stage at distance j.  Every key reads its partner's code (a pair's
+// two keys each read the other's slot before either writes: each writes
+// only after its own read, and only the slot it moves to, or its own); a
+// key whose partner holds an equal code stays, and any other goes to the
+// pair's lower slot if it is the larger of the two and the pair sorts
+// descending, or the smaller and it sorts ascending (a dead slot, code 0,
+// is the smaller); a key that moves writes its new slot and, beside a dead
+// partner, clears its old one.  The pair sorts descending where (bit dbit
+// of its slot) ^ fm is set: fm = dbit flips the direction, dbit = 0 and
+// fm = 1 make every pair descending.
+template <int K>
+__device__ __forceinline__ void live_stage(uint64_t* map, const uint64_t (&key)[K],
+                                           int (&pos)[K], int nw, int j, int dbit, int fm) {
+  uint32_t co[K];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = t * E + e;
-    const bool keep = tot[e] != 0 && tot[e] >= thr;
-    if (i < net_width)
-      dyn_sm[pad_idx(i)] = keep ? (static_cast<uint64_t>(tot[e]) << 32) | ids[e] : 0ull;
-    if (keep) end = i + 1;
+  for (int e = 0; e < K; ++e) co[e] = pos[e] >= 0 ? code_at(map, pos[e] ^ j) : 0u;
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    const int p = pos[e];
+    const uint32_t cm = key_id(key[e]);
+    if (p < 0 || co[e] == cm) continue;
+    const bool desc = ((p & dbit) ^ fm) != 0;
+    const int to = desc == (cm > co[e]) ? (p & ~j) : (p | j);
+    if (to != p) {
+      map[to] = key[e];
+      if (co[e] == 0) map[p] = 0;
+      pos[e] = to;
+    }
   }
-  if (end > 0) atomicMax(&live_end, end);
-  __syncthreads();
-  prune_network(dyn_sm, t, nt, net_width, l_pad, live_end);
+  group_sync(nw);
+}
+
+// One prune round: the first block's key stays unless its partner's code
+// is larger; a second block's key that wins takes the first block's slot
+// (its own leaves the halved row; the first block's key never writes).  A
+// loser drops out.
+template <int K>
+__device__ __forceinline__ void live_prune(uint64_t* map, const uint64_t (&key)[K],
+                                           int (&pos)[K], int nw, int span) {
+  uint32_t co[K];
+#pragma unroll
+  for (int e = 0; e < K; ++e) co[e] = pos[e] >= 0 ? code_at(map, pos[e] ^ span) : 0u;
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    const int p = pos[e];
+    if (p < 0) continue;
+    const uint32_t cm = key_id(key[e]);
+    if ((p & span) == 0) {
+      if (co[e] > cm) pos[e] = -1;
+    } else if (cm > co[e]) {
+      map[p ^ span] = key[e];
+      pos[e] = p ^ span;
+    } else {
+      pos[e] = -1;
+    }
+  }
+  group_sync(nw);
+}
+
+// prune_network's stages, k = l_pad over w slots, on the live keys alone.
+template <int K>
+__device__ void live_network(uint64_t* map, const uint16_t* live, int t, int nw, int m,
+                             int w, int k) {
+  uint64_t key[K];
+  int pos[K];
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    const int i = e * 32 * nw + t;
+    pos[e] = i < m ? static_cast<int>(live[i]) : -1;
+    key[e] = pos[e] >= 0 ? map[pos[e]] : 0ull;
+  }
+  group_sync(nw);  // a partner may write this slot in the first stage
+  if (k == w) {  // a full sort, descending where the size bit is clear
+    for (int size = 2; size <= w; size <<= 1)
+      for (int j = size >> 1; j >= 1; j >>= 1)
+        live_stage<K>(map, key, pos, nw, j, size, size);
+    return;
+  }
+  for (int size = 2; size <= k; size <<= 1)
+    for (int j = size >> 1; j >= 1; j >>= 1)
+      live_stage<K>(map, key, pos, nw, j, size, 0);
+  int span = k;
+  for (int wc = w; wc > k; wc >>= 1) {
+    live_prune<K>(map, key, pos, nw, span);
+    span <<= 1;
+    const bool last = wc == 2 * k;
+    for (int j = k >> 1; j >= 1; j >>= 1)
+      live_stage<K>(map, key, pos, nw, j, last ? 0 : span, last ? 1 : 0);
+  }
+}
+
+// Step 4d (the note) on a tied row: the m live totals (code << 32 | id) at
+// their positions in the map, dyn_sm over the row's net_width slots (when
+// m <= live_cap(n, nt), unpadded, with `live` their positions; else the dense
+// network's pad_idx layout, live_end one past the last).  Runs the prune
+// network, live form or dense by m, and writes the top out_width.  Out of
+// line: only tied rows call it.
+__device__ __noinline__ void tied_topl(int t, int nt, int n, int net_width, int l_pad, int m,
+                                       int live_end, const uint16_t* live, int* o_ids,
+                                       float* o_sc, int out_width, float post) {
+  const bool live_form = m <= live_cap(n, nt);
+  if (live_form) {
+    const int per = m <= nt ? 1 : m <= 2 * nt ? 2 : 4;
+    const int nw = (m + 32 * per - 1) / (32 * per);
+    if (t < 32 * nw) {
+      switch (per) {
+        case 1: live_network<1>(dyn_sm, live, t, nw, m, net_width, l_pad); break;
+        case 2: live_network<2>(dyn_sm, live, t, nw, m, net_width, l_pad); break;
+        default: live_network<4>(dyn_sm, live, t, nw, m, net_width, l_pad); break;
+      }
+    }
+    __syncthreads();
+  } else {
+    prune_network(dyn_sm, t, nt, net_width, l_pad, live_end);
+  }
   for (int i = t; i < out_width; i += nt) {
-    const uint64_t k = dyn_sm[pad_idx(i)];
+    const uint64_t k = dyn_sm[live_form ? i : pad_idx(i)];
     const uint32_t code = key_id(k);
     o_ids[i] = code != 0 ? static_cast<int>(static_cast<uint32_t>(k)) : -1;
     o_sc[i] = code != 0 ? unordered(code) * post : 0.0f;
@@ -707,6 +824,7 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   __shared__ unsigned ws[33];
   __shared__ unsigned sel[3];  // prefix, need, all-live flag
   __shared__ int cum[kByRun ? kMaxRuns + 1 : 1];
+  __shared__ int live_end;  // one past the last live total's position (4d)
 
   const int t = threadIdx.x;
   const int nt = blockDim.x;
@@ -756,7 +874,13 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   // digit passes that no key of the warp is in
   const bool warp_dead = kByRun && (t & ~31) * E >= live_n;
 
-  // 3. run sums: a live run start sums its run forward; the rest is dead (0)
+  // 3. run sums: a live run start sums its run forward; the rest is dead (0).
+  //    The run's last slot, p, goes to run_end at the start's slot (step 4d
+  //    reads it in the same thread).
+  uint64_t* top = sm + padded_words(n);
+  const int n_final = l_pad < 32 ? 32 : l_pad;
+  uint16_t* live = reinterpret_cast<uint16_t*>(top + padded_words(n_final));
+  uint16_t* run_end = live + live_cap(n, nt);
 #pragma unroll
   for (int e = 0; e < E; ++e) sm[pad_idx(t * E + e)] = key[e];
   __syncthreads();
@@ -775,12 +899,14 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
     uint32_t m = 0;
     if (start && id != kPadId) {
       float s = key_score(key[e]);
-      for (int q = i + 1; q < n; ++q) {
+      int q = i + 1;
+      for (; q < n; ++q) {
         const uint64_t kq = sm[pad_idx(q)];
         if (key_id(kq) != id) break;
         s += key_score(kq);
       }
       m = ordered(s + 0.0f);  // -0.0 becomes +0.0, as in the TPU kernel's scan
+      run_end[i] = static_cast<uint16_t>(q - 1);
     }
     tot[e] = m;
     ids[e] = id;
@@ -849,6 +975,10 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
     }
   }
   const uint32_t thr = prefix;  // 0 when all_live: every live total is > 0
+  // the sorted row is read no more: its words become step 4d's map, all
+  // dead (the block scan's barriers order this before the map is filled)
+  for (int i = t; i < padded_words(n); i += nt) sm[i] = 0ull;
+  if (t == 0) live_end = 0;
 
   // 4b. the survivors: the totals above thr and, unless all_live, `need` of
   //     those equal to it.  A row whose cut splits a run of equal totals is
@@ -863,26 +993,37 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
   const unsigned base = block_scan(cnt, t, nt, ws, &total);
   const bool split = !all_live && (total >> 16) > need;
 
-  // 4c. compact the survivors (~total << 32 | id) into `top`, shared memory
-  //     past the sorted row (which 4d may read again), and sort them
-  //     descending by total.  Survivors that repeat a total are adjacent
-  //     now; a row that has them is tied too, as the network decides their
-  //     order.  Every other row has one answer, written from `top`.
-  uint64_t* top = sm + padded_words(n);
-  const int n_final = l_pad < 32 ? 32 : l_pad;
-  int repeat = 0;
-  if (!split) {
-    const unsigned n_gt = total & 0xffffu;
-    unsigned gt_pos = base & 0xffffu, eq_pos = base >> 16;
+  // 4c. the live totals (those above thr and, unless all_live, those equal
+  //     to it; m of them) go to step 4d's map at their positions p, and
+  //     their positions, in scan order, to `live`.  Unless split, they are
+  //     the survivors: compacted (~total << 32 | id) into `top`, shared
+  //     memory past the row, and sorted descending by total.  Survivors
+  //     that repeat a total are adjacent now; a row that has them is tied
+  //     too, as the network decides their order.  Every other row has one
+  //     answer, written from `top`.
+  const unsigned n_gt = total & 0xffffu;
+  const int m_live = static_cast<int>(n_gt + (total >> 16));
+  const bool live_form = m_live <= live_cap(n, nt);  // step 4d's map unpadded
+  {
+    unsigned gt_pos = base & 0xffffu, eq_pos = n_gt + (base >> 16);
+    int end = 0;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const uint64_t out_key = (static_cast<uint64_t>(~tot[e]) << 32) | ids[e];
-      if (tot[e] > thr) {
-        top[gt_pos++] = out_key;
-      } else if (!all_live && tot[e] == thr) {
-        top[n_gt + eq_pos++] = out_key;
+      const bool above = tot[e] > thr;
+      if (above || (!all_live && tot[e] == thr)) {
+        const unsigned idx = above ? gt_pos++ : eq_pos++;
+        const int p = run_end[t * E + e];
+        sm[live_form ? p : pad_idx(p)] = (static_cast<uint64_t>(tot[e]) << 32) | ids[e];
+        if (live_form) live[idx] = static_cast<uint16_t>(p);
+        if (!split) top[idx] = (static_cast<uint64_t>(~tot[e]) << 32) | ids[e];
+        end = p + 1;  // p grows with e
       }
     }
+    end = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(end)));
+    if (lane == 0 && end > 0) atomicMax(&live_end, end);
+  }
+  int repeat = 0;
+  if (!split) {
     const int kept = static_cast<int>(n_gt + (all_live ? 0u : need));
     for (int i = kept + t; i < n_final; i += nt) top[i] = kEmptyKey;
     __syncthreads();
@@ -912,8 +1053,11 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
       repeat |= key_id(top[i]) == key_id(top[i + 1]) ? 1 : 0;
   }
   const bool tied = __syncthreads_or(repeat) || split;
-  if (tie_counts != nullptr && tied && t == 0)
+  if (tie_counts != nullptr && tied && t == 0) {
     atomicAdd(tie_counts + (split ? 0 : 1), 1ull);
+    atomicAdd(tie_counts + 2 + (m_live <= 128 ? 0 : m_live <= 512 ? 1 : m_live <= 2048 ? 2 : 3),
+              1ull);
+  }
   const float post = post_scale != nullptr ? post_scale[row] : 1.0f;
   int* o_ids = out_ids + row * out_width;
   float* o_sc = out_scores + row * out_width;
@@ -927,7 +1071,7 @@ __global__ void __launch_bounds__(max_threads<E>(), 2)
     return;
   }
 
-  tied_topl<E>(t, nt, n, net_width, l_pad, thr, o_ids, o_sc, out_width, post);
+  tied_topl(t, nt, n, net_width, l_pad, m_live, live_end, live, o_ids, o_sc, out_width, post);
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -943,9 +1087,11 @@ int launch(int rows, int n, const int* ids, const float* scores, int width,
            const Gather& g, const float* post_scale, int* out_ids,
            float* out_scores, int out_width, int l_pad, int net_width,
            unsigned long long* tie_counts, cudaStream_t stream) {
-  // the row, then the survivors (step 4c)
+  // the row, then the survivors (step 4c), then the live positions (4d)
+  // and the run ends (3)
   const int smem = (padded_words(n) + padded_words(l_pad < 32 ? 32 : l_pad)) *
-                   static_cast<int>(sizeof(uint64_t));
+                       static_cast<int>(sizeof(uint64_t)) +
+                   (live_cap(n, n / E) + n) * static_cast<int>(sizeof(uint16_t));
   cudaError_t err = cudaFuncSetAttribute(
       merge_kernel<E, kGather, kByRun>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -983,9 +1129,10 @@ int dispatch(int rows, int n, const int* ids, const float* scores, int width,
 
 extern "C" {
 
-// tie_counts, in both entries: null, or two counters to which each row that
-// takes step 4d adds one, the first when its cut splits a run of equal
-// totals, else the second (only survivors repeat a total).
+// tie_counts, in both entries: null, or six counters.  Each row that takes
+// step 4d adds one to the first when its cut splits a run of equal totals,
+// else to the second (only survivors repeat a total), and one to the third
+// to sixth by its live count m: <= 128, <= 512, <= 2048, above.
 
 // The matrix entry.  Launches on `stream` for `rows` rows of width `width`;
 // writes [rows, l_pad].  Returns the CUDA error code of the launch (0 on

@@ -459,11 +459,15 @@ def gather_merge_topl(
 fused_merge_topl.launches = collections.Counter()
 gather_merge_topl.launches = collections.Counter()
 
-# While counting is on: by entry, [rows launched, {device: int64[2]}], the
-# kernel's two counters of the rows that took its prune network (step 4d
-# of csrc/merge_topl.cu), the first when the cut split a run of equal
-# totals, the second when only survivors repeated a total.
+# While counting is on: by entry, [rows launched, {device: int64[6]}], the
+# kernel's counters of the rows that took its prune network (step 4d of
+# csrc/merge_topl.cu): the first when the cut split a run of equal totals,
+# the second when only survivors repeated a total; then the same rows by
+# their live count m (the totals at or above the cut, which the network
+# moves), in LIVE_BUCKETS.
 _tie_counts: Optional[dict] = None
+# The m histogram's buckets.
+LIVE_BUCKETS = ("m<=128", "m<=512", "m<=2048", "m>2048")
 
 
 def count_tied_rows(on: bool = True) -> None:
@@ -476,16 +480,15 @@ def count_tied_rows(on: bool = True) -> None:
 
 def tied_row_counts() -> dict:
     """By entry, since :func:`count_tied_rows`: ``rows`` launched,
-    ``split`` (tied rows whose cut split a run of equal totals) and
-    ``repeat_only`` (tied rows whose survivors alone repeated a total).
+    ``split`` (tied rows whose cut split a run of equal totals),
+    ``repeat_only`` (tied rows whose survivors alone repeated a total) and
+    ``live_hist``, the tied rows by their live count m (:data:`LIVE_BUCKETS`).
     Reads the card's counters, so it waits for their launches."""
     out = {}
     for name, (rows, counters) in (_tie_counts or {}).items():
-        split = repeat = 0
-        for buf in counters.values():
-            s, r = buf.tolist()
-            split, repeat = split + s, repeat + r
-        out[name] = {"rows": rows, "split": split, "repeat_only": repeat}
+        total = [sum(x) for x in zip(*(buf.tolist() for buf in counters.values()))]
+        out[name] = {"rows": rows, "split": total[0], "repeat_only": total[1],
+                     "live_hist": dict(zip(LIVE_BUCKETS, total[2:]))}
     return out
 
 
@@ -497,5 +500,5 @@ def _tie_counter(entry: str, rows: int, device: torch.device) -> Optional[torch.
     seen = _tie_counts.setdefault(entry, [0, {}])
     seen[0] += rows
     if device not in seen[1]:
-        seen[1][device] = torch.zeros(2, dtype=torch.int64, device=device)
+        seen[1][device] = torch.zeros(2 + len(LIVE_BUCKETS), dtype=torch.int64, device=device)
     return seen[1][device]

@@ -8,8 +8,10 @@ of its entries (the matrix entry ``fused_merge_topl`` and the gather entry
 ``gather_merge_topl``) against their plain PyTorch versions on the card:
 modulo ties on rows of random scores, and bitwise (ids, score bits and
 order) on rows of exact sums whose totals tie, at every instantiation of
-the kernel; checks that their output is bitwise deterministic and free of
-the order of a row's candidates, and times them, tied rows beside untied.
+the kernel and on both forms of its tie network (step 4d: the live totals
+alone, or the dense network over the row); checks that their output is
+bitwise deterministic and free of the order of a row's candidates, and
+times them, tied rows beside untied.
 Then it drives the port's main paths, counting each entry's launches in
 each:
 
@@ -48,8 +50,8 @@ each:
 Phases 2, 3, 4 and 8f print the sha256 of their final baskets (the ids'
 bytes and the scores' bits), so two trees' runs can be held bit for bit,
 and the share of each entry's rows that took the kernel's prune network
-for ties (step 4d of ``csrc/merge_topl.cu``), by cause: the cut split a
-run of equal totals, or only survivors repeated one.
+for ties (step 4d of ``csrc/merge_topl.cu``), by cause (the cut split a
+run of equal totals, or only survivors repeated one) and by live count m.
 Phases 2-4 name ``engine="sparse"``.  Each phase (each part of phase 6)
 prints one JSON line; any failure exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -100,6 +102,23 @@ TIE_GATHER = ((5, 50, 50, 128, True), (10, 100, 100, 128, True), (20, 100, 100, 
               (40, 100, 100, 128, True), (81, 100, 100, 128, True), (40, 200, 200, 256, True),
               (40, 200, 400, 512, False), (20, 20, 300, 512, True), (15, 520, 100, 128, True))
 TIE_ROWS = 256
+# Step 4d's forms (csrc/merge_topl.cu): tied rows of m live keys on either
+# side of its branches, one warp (m <= 32, or the 32 threads of a row of
+# 256), several warps, and the dense network (m above a quarter of the
+# row's sort width).  Matrix entry (W, l_pad, m), at both thread counts
+# (E=8 below 4096, E=16 from it); gather entry (D, Lb, valid successors,
+# live slots a basket, l_pad, self entry): the run merge at 8192 (GRank's
+# and MC's combine's shapes) and the network at 4096 and 1024.
+LIVE_FORMS = ((256, 128, 60), (256, 128, 100), (1024, 256, 30), (1024, 256, 200),
+              (1024, 256, 400), (4096, 128, 30), (4096, 128, 700), (4096, 128, 2000),
+              (8192, 128, 32), (8192, 128, 700), (8192, 128, 2048), (8192, 128, 2049),
+              (8192, 256, 5000))
+LIVE_GATHER_FORMS = ((81, 100, 30, 1, 128, True), (81, 100, 81, 8, 128, True),
+                     (81, 100, 81, 40, 128, True), (40, 200, 30, 1, 256, True),
+                     (40, 200, 40, 10, 256, True), (40, 200, 40, 100, 256, True),
+                     (40, 100, 30, 1, 128, True), (40, 100, 40, 10, 128, True),
+                     (40, 100, 40, 40, 128, True), (10, 100, 10, 3, 128, True),
+                     (10, 100, 10, 20, 128, True), (10, 100, 10, 80, 128, True))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit operations/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -207,6 +226,75 @@ def tied_gather_inputs(rng: np.random.Generator, c: int, d: int, lb: int, dev):
     self_sc = rng.choice(TIE_VALUES, c).astype(np.float32)
     post = rng.random(c).astype(np.float32)
     return [torch.as_tensor(x, device=dev) for x in (ids, sc, succ, rows, scale, self_sc, post)]
+
+
+def live_count_rows(w: int, rows: int, l_pad: int, m: int, rng: np.random.Generator,
+                    pad_id: int):
+    """[rows, w] tied rows of exact sums whose live count (the totals at or
+    above the top-l_pad cut) is m: m distinct ids of total 1 or 2 (fewer
+    than l_pad of 2), a quarter of them a run of two halves, and when m >=
+    l_pad ids of total 0.25, below the cut, in the free slots."""
+    ids = np.full((rows, w), pad_id, dtype=np.int32)
+    sc = np.zeros((rows, w), dtype=np.float32)
+    for r in range(rows):
+        uid = rng.permutation(w)
+        tot = np.ones(m, dtype=np.float32)
+        tot[: min(l_pad, m) // 2] = 2.0
+        doubles = min(m // 4, w - m)
+        slot_ids = np.concatenate([uid[:m], uid[:doubles]])
+        slot_sc = np.concatenate([tot, np.zeros(doubles, dtype=np.float32)])
+        slot_sc[:doubles] /= 2
+        slot_sc[m:] = slot_sc[:doubles]
+        if m >= l_pad:
+            free = w - slot_ids.size
+            slot_ids = np.concatenate([slot_ids, uid[m:m + free]])
+            slot_sc = np.concatenate([slot_sc, np.full(free, 0.25, dtype=np.float32)])
+        perm = rng.permutation(w)[: slot_ids.size]
+        ids[r, perm], sc[r, perm] = slot_ids, slot_sc
+    return ids, sc
+
+
+def live_count_gather(rng: np.random.Generator, c: int, d: int, lb: int, d_live: int,
+                      lv: int, self_entry: bool, dev):
+    """The gather entry's inputs, exact sums, rows of about d_live * lv live
+    keys: baskets [TIE_NODES, lb] of lv live slots with ids of their own
+    (1/16, the first 1/8), c rows of d_live distinct successors padded with
+    -1 to d, scales that are powers of two, a dyadic self entry and a
+    post-scale (or neither)."""
+    ids = np.full((TIE_NODES, lb), -1, dtype=np.int32)
+    ids[:, :lv] = np.arange(TIE_NODES)[:, None] * lb + np.arange(lv)[None, :]
+    sc = np.where(ids >= 0, 1 / 16, 0).astype(np.float32)
+    sc[:, 0] = 1 / 8
+    succ = np.stack([rng.permutation(TIE_NODES)[:d] for _ in range(c)]).astype(np.int64)
+    succ[:, d_live:] = -1
+    rows = rng.integers(0, TIE_NODES, c).astype(np.int64)
+    scale = (2.0 ** -rng.integers(0, 4, c)).astype(np.float32)
+    out = [torch.as_tensor(x, device=dev) for x in (ids, sc, succ, rows, scale)]
+    if not self_entry:
+        return out + [None, None]
+    return out + [torch.as_tensor(x, device=dev) for x in (
+        rng.choice(TIE_VALUES, c).astype(np.float32), rng.random(c).astype(np.float32))]
+
+
+def live_counts(ids: np.ndarray, scores: np.ndarray, l_pad: int, pad_id: int) -> np.ndarray:
+    """Each row's live count m: its totals at or above the l_pad-th largest
+    (all of them, when no more than l_pad)."""
+    out = []
+    for r_ids, r_sc in zip(ids, scores):
+        live = (r_ids != pad_id) & (r_ids >= 0)
+        _, inv = np.unique(r_ids[live], return_inverse=True)
+        tot = np.bincount(inv, weights=r_sc[live].astype(np.float64))
+        thr = -np.sort(-tot)[l_pad - 1] if tot.size > l_pad else -np.inf
+        out.append(int(np.sum(tot >= thr)))
+    return np.array(out)
+
+
+def live_hist(m: np.ndarray, tied: np.ndarray) -> dict:
+    """The kernel's m histogram of the tied rows, from their live counts."""
+    from approximated_personalized_pagerank_tpu_torch.ops.merge_kernel import LIVE_BUCKETS
+
+    bucket = np.searchsorted([128, 512, 2048], m[tied])
+    return {b: int(np.sum(bucket == i)) for i, b in enumerate(LIVE_BUCKETS)}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -464,20 +552,25 @@ def phase_kernel():
     return max_err, g_err, timings
 
 
-def tie_causes(ids: np.ndarray, scores: np.ndarray, l_pad: int, pad_id: int) -> list:
+def tie_causes(ids: np.ndarray, scores: np.ndarray, l_pad: int, pad_id: int) -> tuple:
     """[split, repeat only]: the rows of exact sums whose top-``l_pad`` cut
     splits a run of equal totals, and the other rows whose survivors repeat
-    a total (the kernel's two tied-row counters)."""
+    a total (the kernel's two tied-row counters); and which rows tie."""
     split = repeat = 0
+    tied = []
     for r_ids, r_sc in zip(ids, scores):
         live = r_ids != pad_id
         uniq, inv = np.unique(r_ids[live], return_inverse=True)
         tot = -np.sort(-np.bincount(inv, weights=r_sc[live].astype(np.float64)))
         if tot.size > l_pad and np.sum(tot == tot[l_pad - 1]) > np.sum(tot[:l_pad] == tot[l_pad - 1]):
             split += 1
+            tied.append(True)
         elif np.any(tot[:l_pad][1:] == tot[:l_pad][:-1]):
             repeat += 1
-    return [split, repeat]
+            tied.append(True)
+        else:
+            tied.append(False)
+    return [split, repeat], np.array(tied)
 
 
 def tied_checks(rng: np.random.Generator, dev) -> tuple:
@@ -504,10 +597,11 @@ def tied_checks(rng: np.random.Generator, dev) -> tuple:
             mk.count_tied_rows(True)
             kernel(ids, sc, l_pad)
             counts = mk.tied_row_counts()["fused_merge_topl"]
-            want = tie_causes(ids_np, sc_np, l_pad, mk.PAD_ID)
-            check([counts["split"], counts["repeat_only"]] == want,
+            want, tied = tie_causes(ids_np, sc_np, l_pad, mk.PAD_ID)
+            hist = live_hist(live_counts(ids_np, sc_np, l_pad, mk.PAD_ID), tied)
+            check([counts["split"], counts["repeat_only"]] == want and counts["live_hist"] == hist,
                   f"matrix entry, tied rows ({w}, {c}, {l_pad}): the kernel counted "
-                  f"{counts}, the rows hold {want} (split, repeat only)")
+                  f"{counts}, the rows hold {want} (split, repeat only) and m {hist}")
             mk.count_tied_rows(True)
             kernel(*untied, l_pad)
             untied_counts = mk.tied_row_counts()["fused_merge_topl"]
@@ -528,6 +622,31 @@ def tied_checks(rng: np.random.Generator, dev) -> tuple:
         w = d * lb + int(self_entry)
         cases.append({"entry": "gather", "W": max(mk.next_pow2(w), l_pad), "D": d,
                       "Lb": lb, "C": TIE_ROWS, "l_pad": l_pad, "self_entry": self_entry})
+    # step 4d's forms, each on rows of one live count m (a stream of their own,
+    # so the cases and timings around them keep their inputs)
+    frng = np.random.default_rng(9)
+    for w, l_pad, m in LIVE_FORMS:
+        ids_np, sc_np = live_count_rows(w, 64, l_pad, m, frng, mk.PAD_ID)
+        ids, sc = torch.as_tensor(ids_np, device=dev), torch.as_tensor(sc_np, device=dev)
+        mk.count_tied_rows(True)
+        got = kernel(ids, sc, l_pad)
+        counts = mk.tied_row_counts()["fused_merge_topl"]
+        mk.count_tied_rows(False)
+        check(same_bits(got, plain(ids, sc, l_pad)),
+              f"matrix entry, step 4d at m={m} ({w}, {l_pad}): not bitwise its plain version")
+        hist = live_hist(np.full(64, m), np.ones(64, dtype=bool))
+        check(counts["live_hist"] == hist,
+              f"matrix entry, step 4d at m={m} ({w}, {l_pad}): the kernel counted {counts}")
+        cases.append({"entry": "matrix", "W": w, "C": 64, "l_pad": l_pad, "m": m,
+                      "ms": time_ms(lambda: kernel(ids, sc, l_pad), 20)})
+    for d, lb, d_live, lv, l_pad, self_entry in LIVE_GATHER_FORMS:
+        args = (*live_count_gather(frng, 64, d, lb, d_live, lv, self_entry, dev), l_pad, l_pad)
+        check(same_bits(gather(*args), gather_plain(*args)),
+              f"gather entry, step 4d (D {d}, Lb {lb}, {d_live} x {lv} live, l_pad {l_pad}): "
+              "not bitwise its plain version")
+        cases.append({"entry": "gather", "D": d, "Lb": lb, "C": 64, "l_pad": l_pad,
+                      "m_about": d_live * lv + int(self_entry), "self_entry": self_entry,
+                      "ms": time_ms(lambda: gather(*args), 20)})
     # the gather entry at Eat's widest bucket: tied rows beside GRank-like ones
     d, c = EAT_BUCKETS[0]
     b_ids, b_sc, succ, rows, scale, self_sc, post = tied_gather_inputs(rng, c, d, L, dev)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port spends its time on the card.
 
-    python3 profile_port.py [grank|mc|dense|ring|gather]
+    python3 profile_port.py [grank|mc|dense|ring|gather|tiebranch]
 
 Runs the port's smoke cells under ``torch.profiler`` (no argument: the
 first four modes).  ``grank``: sparse GRank on Eat (K=50, L=100, 30
@@ -22,7 +22,8 @@ kernel launches per unit of work (half-sweep, or walk source chunk), and
 the device activities and host operators with the most time.  ``gather`` is no
 profiler cell: it splits the merge kernel's gather entry into its stages by
 building copies of ``csrc/merge_topl.cu`` with a stage cut out (the run
-sorts, the merge levels, or everything after the merge), and times each
+sorts, the merge levels, everything after the merge, or step 4d, the tied
+rows' prune network), and times each
 with CUDA events beside the whole kernel on real basket state at its
 widest bucket: Eat's GRank baskets after two half-sweeps, Eat's MC walk
 baskets (the combine's input) and the 1M graph's GRank baskets after two
@@ -31,7 +32,12 @@ baskets; only its time is read.  It also times, bucket by bucket over those
 states and the 1M graph's after two half-sweeps, the kernel as built (the
 run merge on rows of 8192, the network below) beside a copy that takes the
 run merge from 512 up, whose output is checked bitwise
-equal.  Needs a CUDA card.
+equal, and beside the copy without step 4d.  ``tiebranch`` sets step
+4d's threshold: it times the matrix entry on tied rows of m live keys
+(``chip_smoke.py::live_count_rows``) at GRank's and MC's widths, built
+with the live form taking every m its lanes hold, with the dense network
+always and with no step 4d, beside the kernel as built (and on untied
+rows).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -109,6 +116,8 @@ def profiled(name: str, fn, units: int, unit: str) -> float:
     return wall
 
 
+# Tied rows write what step 4c left: wrong for them, timed only.
+NO_STEP_4D = ("no_step_4d", "  if (!tied) {\n", "  if (true) {\n")
 # Stage cuts of the gather entry: (name, text of csrc/merge_topl.cu, its
 # replacement).  "steps_1_2" returns after the merge, keeping its keys live.
 GATHER_CUTS = (
@@ -121,34 +130,45 @@ GATHER_CUTS = (
      "    if (x == 0x12345ull) out_ids[row] = 1;\n    return;\n"),
     ("run_merge_from_512", "n == kRunMergeWidth && lb <= kMaxRunWidth",
      "n >= 512 && lb <= kMaxRunWidth"),
+    NO_STEP_4D,
+)
+# Step 4d's two forms, for the tiebranch mode: the live form for every m
+# the block's lanes hold (4 a lane), the dense network always, and no step
+# 4d.
+LIVE_SHARE = "constexpr int kLiveShare = "
+TIE_FORMS = (
+    ("live", LIVE_SHARE, LIVE_SHARE + "1; //"),
+    ("dense", LIVE_SHARE, LIVE_SHARE + "(1 << 20); //"),
+    NO_STEP_4D,
 )
 
 
-def _gather_cut_libs() -> dict:
-    """The whole kernel and each stage cut, built in parallel into
-    build/kernels/; name -> the C entry ppr_gather_merge_topl."""
+def _variant_libs(cuts, entry: str) -> dict:
+    """The whole kernel and each variant (name, anchor, replacement) of its
+    source, built in parallel into build/kernels/; name -> the C entry
+    ``entry``."""
     from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
 
     whole = mk.load_library()
     with open(mk.KERNEL_SOURCE) as f:
         src = f.read()
     procs = {}
-    for name, old, new in GATHER_CUTS:
+    for name, old, new in cuts:
         if src.count(old) != 1:
-            raise RuntimeError(f"gather cut {name!r}: its anchor is not in {mk.KERNEL_SOURCE}")
-        path = os.path.join(mk.BUILD_DIR, f"gather_cut_{name}.cu")
+            raise RuntimeError(f"variant {name!r}: its anchor is not in {mk.KERNEL_SOURCE}")
+        path = os.path.join(mk.BUILD_DIR, f"variant_{name}.cu")
         with open(path, "w") as f:
             f.write(src.replace(old, new))
         procs[name] = subprocess.Popen(
             [mk._nvcc(), *mk.NVCC_FLAGS, "-o", path[:-3] + ".so", path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {"whole": whole.ppr_gather_merge_topl}
+    libs = {"whole": getattr(whole, entry)}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"gather cut {name!r} failed to build:\n{log}")
-        fn = ctypes.CDLL(os.path.join(mk.BUILD_DIR, f"gather_cut_{name}.so")).ppr_gather_merge_topl
-        fn.restype, fn.argtypes = ctypes.c_int, whole.ppr_gather_merge_topl.argtypes
+            raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
+        fn = getattr(ctypes.CDLL(os.path.join(mk.BUILD_DIR, f"variant_{name}.so")), entry)
+        fn.restype, fn.argtypes = ctypes.c_int, getattr(whole, entry).argtypes
         libs[name] = fn
     return libs
 
@@ -178,7 +198,7 @@ def gather_stages(eat) -> None:
     from approximated_personalized_pagerank_tpu_torch.ops.merge import DEFAULT_ELEM_BUDGET, _scales
     from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
-    libs = _gather_cut_libs()
+    libs = _variant_libs(GATHER_CUTS, "ppr_gather_merge_topl")
     damping = torch.tensor(DAMPING, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -231,6 +251,7 @@ def gather_stages(eat) -> None:
             "share_run_sort": (whole - ms["no_run_sort"]) / whole,
             "share_merge": (whole - ms["no_merge"]) / whole,
             "share_steps_3_4": (whole - ms["steps_1_2"]) / whole,
+            "share_step_4d": (whole - ms["no_step_4d"]) / whole,
         }), flush=True)
         rows = []
         for b in buckets:
@@ -243,10 +264,66 @@ def gather_stages(eat) -> None:
                 raise RuntimeError(f"{label}: the run merge differs at cap {b.cap}")
             rows.append({"D": d, "C": c, "W": 1 << (d * width).bit_length(),
                          "ms": _events_ms(lambda: launch(libs["whole"])),
-                         "run_merge_ms": _events_ms(lambda: launch(libs["run_merge_from_512"]))})
+                         "run_merge_ms": _events_ms(lambda: launch(libs["run_merge_from_512"])),
+                         "no_step_4d_ms": _events_ms(lambda: launch(libs["no_step_4d"]))})
         print(json.dumps({"cell": "gather_widths", "state": label, "live_slot_share": live,
                           "buckets": rows}), flush=True)
     print(json.dumps({"cell": "gather", "nvidia_smi": _card()}), flush=True)
+
+
+# tiebranch: (W, l_pad, rows) of the matrix entry, and the live counts m
+TIE_BRANCH_SHAPES = ((8192, 128, 517), (8192, 256, 512), (4096, 128, 1048),
+                     (2048, 128, 1024), (1024, 128, 1024))
+TIE_BRANCH_M = (64, 128, 256, 512, 768, 1024, 1536, 2047)
+
+
+def tie_branch() -> None:
+    """The ``tiebranch`` mode (see the module doc): a JSON line a shape,
+    each m's time in the live form, the dense network, the kernel as built
+    and with no step 4d (the outputs of the first three checked bitwise
+    equal), and the kernel as built on untied rows of the shape."""
+    from chip_smoke import live_count_rows, untied_rows
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
+
+    libs = _variant_libs(TIE_FORMS, "ppr_merge_topl")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rng = np.random.default_rng(0)
+
+    def timed(fn, ids, sc, c, w, l_pad):
+        """fn's time on the rows, and its output."""
+        out = (torch.empty((c, l_pad), dtype=torch.int32, device="cuda"),
+               torch.empty((c, l_pad), dtype=torch.float32, device="cuda"))
+        tensors = (ids, sc, *out)
+
+        def launch():
+            p = [ctypes.c_void_p(x.data_ptr()) for x in tensors]
+            err = fn(p[0], p[1], p[2], p[3], c, w, l_pad, None, stream)
+            if err:
+                raise RuntimeError(f"tiebranch launch failed (CUDA error {err})")
+        return _events_ms(launch), out
+
+    for w, l_pad, c in TIE_BRANCH_SHAPES:
+        n = max(w, 256)
+        lanes = n // (16 if n >= 4096 else 8)
+        untied = [torch.as_tensor(x, device="cuda") for x in untied_rows(w, c, rng, mk.PAD_ID)]
+        untied_ms = timed(libs["whole"], *untied, c, w, l_pad)[0]
+        rows = []
+        for m in (m for m in TIE_BRANCH_M if m <= 4 * lanes and m <= w):  # the live form's lanes
+            ids, sc = (torch.as_tensor(x, device="cuda")
+                       for x in live_count_rows(w, c, l_pad, m, rng, mk.PAD_ID))
+            outs = {}
+            ms = {}
+            for name, fn in libs.items():
+                ms[name], outs[name] = timed(fn, ids, sc, c, w, l_pad)
+            for name in ("live", "whole"):
+                if not (torch.equal(outs[name][0], outs["dense"][0]) and torch.equal(
+                        outs[name][1].view(torch.int32), outs["dense"][1].view(torch.int32))):
+                    raise RuntimeError(f"tiebranch ({w}, {l_pad}) m={m}: {name} differs")
+            rows.append({"m": m, "live_ms": ms["live"], "dense_ms": ms["dense"],
+                         "as_built_ms": ms["whole"], "no_step_4d_ms": ms["no_step_4d"]})
+        print(json.dumps({"cell": "tiebranch", "W": w, "l_pad": l_pad, "C": c,
+                          "lanes": lanes, "untied_ms": untied_ms, "by_m": rows}), flush=True)
+    print(json.dumps({"cell": "tiebranch", "nvidia_smi": _card()}), flush=True)
 
 
 def main() -> int:
@@ -264,7 +341,7 @@ def main() -> int:
     from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
     modes = sys.argv[1:] or ["grank", "mc", "dense", "ring"]
-    if set(modes) - {"grank", "mc", "dense", "ring", "gather"}:
+    if set(modes) - {"grank", "mc", "dense", "ring", "gather", "tiebranch"}:
         print(f"profile_port: unknown mode in {modes}", file=sys.stderr)
         return 2
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
@@ -301,6 +378,8 @@ def main() -> int:
                  -(-eat.num_nodes // chunk), "walk_chunk")
     if "gather" in modes:
         gather_stages(eat)
+    if "tiebranch" in modes:
+        tie_branch()
     if "ring" in modes:
         card = torch.device("cuda", 0)
         for d in (1, 4):
