@@ -135,7 +135,13 @@ MC_UNROLL = 32  # hops per macro step of the walks (ops/walk.py default)
 # the walks at 1M nodes (bench.py's scale run): L, R
 WALK_L, WALK_R = 100, 200
 # phase 8f: the v5e TPU's MC jaccard on the same graph and config (the JAX
-# package's docs/PERF.md, round 5)
+# package's docs/PERF.md, round 5: one run, seed 1).  The card reads
+# 0.937-0.940 over seeds 1-4.  The gap is known not to be the walks (bitwise
+# the JAX package's at 3,000 and 200,000 nodes and on Eat), a combine pass
+# or the final cut (the JAX package's up to ties at the cut and the order of
+# sums, from a shared input), nor the kernel or the hub hierarchy (the flat
+# sort pipeline reads within the seed spread of the kernel's on the card):
+# mc_tie_study.py stages / card, ROADMAP C5.
 TPU_V5E_MC_JACCARD = 0.9449
 # phase 6, the dense engine: timed calls per measurement; the auto cutoff's
 # graph (16,384 nodes at Eat's 13.5 edges a node); H100 SXM dense bf16 peak

@@ -119,8 +119,33 @@ def test_half_sweeps_match_from_shared_state(algo_t, algo_j, L, hub):
         assert abs(float(dt) - float(dj)) < 1e-5
 
 
-def test_mc_combine_sweep_matches():
-    gj = _graph(9, hub=True)
+def _hub_graph(seed, hub_edges):
+    """200 nodes of out-degree ~7, and node 0 with ``hub_edges`` out-edges
+    (repeats included)."""
+    rng = np.random.default_rng(seed)
+    n = 200
+    src = np.concatenate([np.zeros(hub_edges, np.int64), rng.integers(1, n, 1400)])
+    return pj.Graph.from_edges(src, rng.integers(0, n, src.size), num_nodes=n)
+
+
+# (port merge_algo, JAX merge_algo, hub edges of node 0).  The kernel
+# pipeline's plan is built with its network width, so node 0 takes the hub
+# path (sub = 31 successors a group at L=16, M = 32): 120 edges make 4
+# groups, one final merge; 500 make 17, and 17 * M > sub * L runs the
+# tree-reduce loop first.  The flat sort pipeline has no hub path.
+MC_COMBINE_CASES = [
+    ("sort", "sort", 120),
+    ("kernel:512", "bitonic:512", 120),
+    ("kernel:512", "bitonic:512", 500),
+]
+
+
+@pytest.mark.parametrize("algo_t,algo_j,hub_edges", MC_COMBINE_CASES)
+def test_mc_combine_sweep_matches(algo_t, algo_j, hub_edges):
+    """One MC combine pass from a tie-free state (distinct ids a row,
+    random scores): the hub path's self entry and post scale, its group cuts
+    and its tree reduction against the JAX package's."""
+    gj = _graph(9, hub=True) if hub_edges == 120 else _hub_graph(9, hub_edges)
     gt = graph_from_arrays(gj.indptr, gj.indices)
     n, L = gj.num_nodes, 16
     rng = np.random.default_rng(2)
@@ -128,16 +153,25 @@ def test_mc_combine_sweep_matches():
     ids[rng.random((n, L)) < 0.2] = -1
     sc = np.where(ids >= 0, rng.random((n, L)) / L, 0).astype(np.float32)
     sc = -np.sort(-sc, axis=1)
-    plan = gj.merge_plan(None)
+    net = jm.net_max_width(algo_j)
+    assert net == tm.net_max_width(algo_t)
+    hub_sub = max((net - 1) // L, 1) if net else None
+    plan_j = gj.merge_plan(None, L=L if net else None, net_width=net)
+    plan_t = gt.merge_plan(None, L=L if net else None, net_width=net)
+    if net:
+        hub_caps = [b.cap for b in plan_t.buckets if b.cap > hub_sub]
+        assert len(hub_caps) == 1
+        g, m = -(-hub_caps[0] // hub_sub), 2 * L
+        assert (g * m > hub_sub * L) == (hub_edges == 500)
     sweep = jax.jit(functools.partial(
-        jm.merge_sweep, L=L, num_rows=n, mode="mc_combine", algo="sort",
-        elem_budget=BUDGET))
+        jm.merge_sweep, L=L, num_rows=n, mode="mc_combine", algo=algo_j,
+        elem_budget=BUDGET, hub_sub=hub_sub))
     bj, _ = sweep(jb.Baskets(jnp.asarray(ids), jnp.asarray(sc)),
-                  jm.device_plan(plan, n), jnp.float32(DAMPING))
+                  jm.device_plan(plan_j, n), jnp.float32(DAMPING))
     bt, _ = tm.merge_sweep(baskets_from_numpy(ids, sc, "cpu"),
-                           tm.device_plan(gt.merge_plan(None), "cpu"),
-                           torch.tensor(DAMPING), L, "sort", mode="mc_combine",
-                           elem_budget=BUDGET)
+                           tm.device_plan(plan_t, "cpu"),
+                           torch.tensor(DAMPING), L, algo_t, mode="mc_combine",
+                           elem_budget=BUDGET, hub_sub=hub_sub)
     topl_max_error(np.asarray(bj.ids), np.asarray(bj.scores), bt.ids, bt.scores, ATOL)
 
 

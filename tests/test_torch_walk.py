@@ -181,6 +181,37 @@ def test_walk_counts_chunk_bitwise(stratified):
     np.testing.assert_array_equal(t_ab.numpy(), np.asarray(j_ab))
 
 
+def test_first_chunk_above_65536_nodes_bitwise():
+    """Above 65,536 nodes the trace plan walks 32,768 sources a chunk (512
+    at most below): the first chunk of a 70,000-node graph, at the plan's
+    own chunk, slots and macro steps and with its own key, gives one trace
+    and one count of abandoned walks in both packages."""
+    n, R = 70_000, 4
+    rng = np.random.default_rng(4)
+    deg = rng.integers(0, 6, n)
+    src = np.repeat(np.arange(n), deg)
+    dst = rng.integers(0, n, src.size)
+    gj = pj.Graph.from_edges(src, dst, num_nodes=n)
+    gt = pt.Graph.from_edges(src, dst, num_nodes=n)
+    chunk, _, slots, total, macro, _ = tw._trace_chunks(n, R, DAMPING, None, None, 32)
+    assert chunk == 32_768
+    assert jw._trace_plan(R, DAMPING, None, None, 32, num_nodes=n)[:4] == (
+        chunk, slots, total, macro)
+    sd_j, ind_j = _jax_tables(gj)
+    dg = gt.device_graph("cpu")
+    j_tr, j_ab = jw.walk_trace_chunk(
+        sd_j, ind_j, jnp.arange(chunk, dtype=jnp.int32),
+        jax.random.fold_in(jax.random.PRNGKey(1), 0), jnp.float32(DAMPING),
+        jnp.int32(total), slots, macro, 32)
+    t_tr, t_ab = tw.walk_trace_chunk(
+        dg.start_deg, dg.indices, tw._chunk_sources(0, n, chunk, "cpu")[0],
+        prng.fold_in(prng.prng_key(1), 0), torch.tensor(DAMPING, dtype=torch.float32),
+        total, slots, macro, 32)
+    np.testing.assert_array_equal(t_tr.numpy(), np.asarray(j_tr))
+    np.testing.assert_array_equal(t_ab.numpy(), np.asarray(j_ab))
+    assert (t_tr >= 0).sum() > chunk * total  # the chunk walked
+
+
 # ------------------------------------------------------------ whole walks
 def _rows(b):
     return [sorted((int(i), round(float(s), 6)) for i, s in zip(r, q) if i >= 0)
