@@ -67,14 +67,14 @@ def grank_baskets(
     damping: float,
     tolerance: float,
     elem_budget: int = DEFAULT_ELEM_BUDGET,
+    mesh=None,
+    host_loop: bool = False,
     merge_algo: str | None = None,
     engine: str = "auto",
     matmul_dtype=None,
     exact_trunc: bool = False,
     return_info: bool = False,
     device=None,
-    mesh=None,
-    host_loop: bool = False,
 ):
     """GRank returning ``[N, K]`` basket tensors over internal node ids.
 
@@ -184,18 +184,18 @@ def grank(
     damping: float,
     tolerance: float,
     elem_budget: int = DEFAULT_ELEM_BUDGET,
-    merge_algo: str | None = None,
     engine: str = "auto",
     matmul_dtype=None,
     exact_trunc: bool = False,
+    merge_algo: str | None = None,
     device=None,
 ) -> Dict[Hashable, Dict[Hashable, float]]:
     """GRank with the reference's call signature and map-of-maps result
     (include/grank.h:42-48)."""
     return baskets_to_dict(
         grank_baskets(
-            graph, K, L, iterations, damping, tolerance, elem_budget,
-            merge_algo=merge_algo, engine=engine, matmul_dtype=matmul_dtype,
+            graph, K, L, iterations, damping, tolerance,
+            elem_budget=elem_budget, merge_algo=merge_algo, engine=engine, matmul_dtype=matmul_dtype,
             exact_trunc=exact_trunc, device=device,
         ),
         graph,
@@ -223,7 +223,7 @@ def grank_multi_baskets(
     ``device="cpu"`` (parallel/mesh.mesh_for)."""
     check_shards(n_shards)
     return grank_baskets(
-        graph, K, L, iterations, damping, tolerance, elem_budget,
+        graph, K, L, iterations, damping, tolerance, elem_budget=elem_budget,
         merge_algo=merge_algo, mesh=mesh_for(n_shards, devices, device),
     )
 

@@ -69,9 +69,9 @@ def mccompletepathv2_baskets(
     engine: str = "auto",
     matmul_dtype=None,
     return_info: bool = False,
+    mesh=None,
     successor_choice: str = "uniform",
     device=None,
-    mesh=None,
 ):
     """MCCompletePathV2 returning ``[N, K]`` baskets over internal ids.
 

@@ -112,8 +112,8 @@ def ppr_single_source_batch(
     damping: float,
     tolerance: float,
     edge_elem_budget: int = DEFAULT_EDGE_ELEM_BUDGET,
-    device=None,
     mesh=None,
+    device=None,
 ) -> torch.Tensor:
     """Dense exact PPR vectors ``float32[B, N]`` for internal-id sources,
     on ``device`` (``None`` means ``"cuda"``).

@@ -40,6 +40,10 @@ class Baskets(NamedTuple):
     def width(self) -> int:
         return self.ids.shape[-1]
 
+    def sizes(self) -> torch.Tensor:
+        """Number of live entries per row (== map.size() in the reference)."""
+        return (self.ids >= 0).sum(-1)
+
 
 def empty_baskets(num_rows: int, width: int, device="cpu") -> Baskets:
     return Baskets(

@@ -445,10 +445,10 @@ def walk_trace_basket_chunks(
     source_chunk: int | None = None,
     slots: int | None = None,
     unroll: int = 32,
+    mesh=None,
     stratified: bool = False,
     merge_algo: str | None = None,
     device=None,
-    mesh=None,
 ) -> Iterator[Tuple[int, Baskets, torch.Tensor, torch.Tensor]]:
     """Yield ``(start_row, Baskets, visits, abandoned)`` per source chunk:
     normalized top-L walk baskets of the chunk's sources from the trace
@@ -599,10 +599,10 @@ def walk_baskets(
     slots: int | None = None,
     return_info: bool = False,
     engine: str = "auto",
+    mesh=None,
     stratified: bool = False,
     merge_algo: str | None = None,
     device=None,
-    mesh=None,
 ):
     """Top-L walk baskets ``[N, L]`` for every node of the graph.
 

@@ -44,8 +44,12 @@ each:
   (``examples/*_torch.py``): ``run_eat_torch`` at full Eat scale,
   ``run_synthetic_torch``, ``run_sharded_torch`` and ``bench_ring_torch``
   at reduced sizes, and the north star, ``run_scale_torch`` at 4.8M nodes
-  and 69M edges, held to the TPU run's quality on the same graph, its MC
-  jaccard printed beside the TPU's.
+  and 69M edges through ``bench_torch.py::bench_scale_full``, held to the
+  TPU run's quality on the same graph, its MC jaccard printed beside the
+  TPU's;
+* phase 9: ``bench_torch.py``'s quick blocks (bench.py's Eat GRank and
+  MC, dense, ring and 1M-node scale blocks), its keys held against
+  bench.py's, its Eat GRank baskets against phase 2's digest.
 
 Phases 2, 3, 4 and 8f print the sha256 of their final baskets (the ids'
 bytes and the scores' bits), so two trees' runs can be held bit for bit,
@@ -53,8 +57,9 @@ and the share of each entry's rows that took the kernel's prune network
 for ties (step 4d of ``csrc/merge_topl.cu``), by cause (the cut split a
 run of equal totals, or only survivors repeated one) and by live count m.
 Phases 2-4 name ``engine="sparse"``.  Each phase (each part of phase 6)
-prints one JSON line; any failure exits non-zero.  The last line
-is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+prints one JSON line; any failure exits non-zero.  The total wall comes
+before the ``kernels`` line; the last line is ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing no result,
 when no CUDA device is present.
 """
 
@@ -418,14 +423,9 @@ def real_state_timing(graph, state, partition: int, label: str) -> dict:
 
 
 def measured_merges(graph, half_sweeps: int) -> int:
-    """Basket-merge slot updates performed: for each half-sweep, every edge
-    out of the active partition contributes one basket of L slots
-    (partition 0 sweeps first).  The formula of bench.py."""
-    part = graph.partition
-    deg = graph.out_degree.astype(np.int64)
-    e0 = int(deg[part == 0].sum())
-    e1 = int(deg[part == 1].sum())
-    return (((half_sweeps + 1) // 2) * e0 + (half_sweeps // 2) * e1) * L
+    """Basket-merge slot updates of ``half_sweeps`` half-sweeps at L
+    (bench_torch.py's, bench.py's formula)."""
+    return load_bench().measured_merges(graph, L, half_sweeps)
 
 
 def phase_device():
@@ -711,7 +711,8 @@ def phase_eat() -> dict:
     """Phase 2: the headline, GRank on Eat through the kernel, against the
     sort pipeline and the exact oracle.  ``wall_s`` is the median of
     EAT_REPEATS timed calls; the launch counts are the first call's.
-    Returns the main path's launches of each entry."""
+    Returns the main path's launches of each entry, and the baskets'
+    sha256."""
     from approximated_personalized_pagerank_tpu_torch import (
         benchmark_sampled,
         grank_baskets,
@@ -781,7 +782,7 @@ def phase_eat() -> dict:
     check(agree >= 0.98, f"kernel vs sort mean jaccard {agree} < 0.98")
     check(stats["jaccard average"] >= 0.90, "Eat jaccard_average < 0.90")
     check(stats["recall average"] >= 0.94, "Eat recall_average < 0.94")
-    return launches
+    return launches, digest
 
 
 def phase_scale() -> tuple:
@@ -1709,16 +1710,26 @@ def emit_examples(part: str, smi: str, obj: dict) -> None:
     emit({"phase": 8, "part": part, "nvidia_smi": smi, **obj})
 
 
-def load_example(name: str):
-    """An example driver of the port (examples/<name>.py) as a module."""
+def load_script(*path: str):
+    """A script of the repository (its path under the root) as a module."""
     import importlib.util
     import os
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
+    full = os.path.join(os.path.dirname(os.path.abspath(__file__)), *path)
+    spec = importlib.util.spec_from_file_location(os.path.basename(full)[:-3], full)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_example(name: str):
+    """An example driver of the port (examples/<name>.py) as a module."""
+    return load_script("examples", f"{name}.py")
+
+
+def load_bench():
+    """bench_torch.py, the port's counterpart of bench.py, as a module."""
+    return load_script("bench_torch.py")
 
 
 def native_loader(big, smi: str) -> None:
@@ -1836,13 +1847,13 @@ def example_bench_ring(smi: str) -> dict:
 
 
 def north_star(smi: str) -> dict:
-    """Phase 8f: the north star, examples/run_scale_torch.py::run_scale at
-    full size (4.8M nodes, 69M edges, locality 0.8; GRank K=50, L=100, 30
+    """Phase 8f: the north star, bench_torch.py::bench_scale_full, which
+    runs examples/run_scale_torch.py::run_scale at full size (4.8M nodes, 69M edges, locality 0.8; GRank K=50, L=100, 30
     half-sweeps, tol 1e-4; MC mc_l=100, R=200; 32 strict sources), each
     stage's line forwarded as it ends, the timed GRank's and MC's with
     their tied rows.  Held to the TPU run on the same graph up to tie
     noise.  Returns its launches."""
-    mod = load_example("run_scale_torch")
+    bench = load_bench()
     stages = {}
 
     def forward(line: str) -> None:
@@ -1855,8 +1866,7 @@ def north_star(smi: str) -> dict:
         emit_examples("f: north star stage", smi, stage)
 
     clear_counts()
-    out, wall = timed(lambda: mod.run_scale(test_nodes=32, log=forward, device="cuda",
-                                            digests=True))
+    out, wall = timed(lambda: bench.bench_scale_full("cuda", log=forward, digests=True))
     launches = read_counts()
     emit_examples("f: north star", smi, {
         "wall_s": wall, **out, "tpu_v5e_mc_jaccard": TPU_V5E_MC_JACCARD,
@@ -1885,13 +1895,55 @@ def phase_examples(big, smi: str) -> list:
     return runs
 
 
+def phase_bench(eat_digest: str, smi: str) -> dict:
+    """Phase 9: bench_torch.py's quick blocks on the card, as its main runs
+    them (bench_eat, bench_dense_eat, bench_ring, bench_scale; MC and the
+    scale block cut to one timed run).  Checks its keys against bench.py's
+    (read from bench.py's source), the Eat GRank baskets' digest against
+    phase 2's (the same config: auto is sparse on Eat), the ring's ids
+    against the sparse engine's, phase 2's and 4's quality bounds, and that
+    both entries were launched.  Returns the launches."""
+    from approximated_personalized_pagerank_tpu_torch.utils.compare import basket_sha256
+
+    bench = load_bench()
+    keep = {}
+    clear_counts()
+    t0 = time.perf_counter()
+    extra = bench.kernel_build("cuda")
+    graph, dataset = bench.load_graph()
+    elapsed, eat = bench.bench_eat(graph, dataset, "cuda", mc_repeats=1, keep=keep)
+    extra.update(eat)
+    extra.update(bench.bench_dense_eat(graph, "cuda"))
+    extra.update(bench.bench_ring(graph, sparse_wall_s=elapsed, device="cuda"))
+    extra.update(bench.bench_scale("cuda", repeats=1))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    result = bench.result_json(elapsed, extra)
+    keys, want = set(result) | set(extra), bench.expected_keys()
+    digest = basket_sha256(keep["grank"])
+    emit({"phase": 9, "nvidia_smi": smi, "wall_s": wall, "bench": result,
+          "missing_keys": sorted(want - keys), "unexpected_keys": sorted(keys - want),
+          "grank_sha256": digest, "kernel_launches": launches_json(launches)})
+    check(keys == want, "9: bench_torch.py's keys differ from bench.py's under its mapping")
+    check(result["value"] > 0, "9: no Eat GRank wall")
+    check(digest == eat_digest, "9: the Eat GRank baskets differ from phase 2's")
+    check(extra["ring_ids_identical_to_sparse"], "9: ring ids differ from the sparse engine's")
+    check(extra["jaccard_average"] >= 0.90, "9: Eat GRank jaccard_average < 0.90")
+    check(extra["recall_average"] >= 0.94, "9: Eat GRank recall_average < 0.94")
+    check(extra["mc_jaccard_average"] >= 0.94, "9: Eat MC jaccard_average < 0.94")
+    for name, c in launches.items():
+        check(sum(c.values()) > 0, f"9: {name} was not launched")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     name, count, smi = phase_device()
     max_err, g_err, timings = phase_kernel()
-    eat_launches = phase_eat()
+    eat_launches, eat_digest = phase_eat()
     scale_launches, big = phase_scale()
     mc_launches, mc_errs = phase_mc()
     walk_launches = phase_walk_scale(big)
@@ -1899,9 +1951,10 @@ def main() -> int:
     ring_launches = phase_ring(big, smi)
     example_launches = phase_examples(big, smi)
     del big
+    bench_launches = phase_bench(eat_digest, smi)
     # the main paths' runs
     runs = [eat_launches, scale_launches, mc_launches, walk_launches, dense_launches,
-            *ring_launches, *example_launches]
+            *ring_launches, *example_launches, bench_launches]
     launches = {k: sum(sum(r[k].values()) for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")
@@ -1909,6 +1962,7 @@ def main() -> int:
     matrix = timings[0]  # Eat's widest chunk, W=8192, C=517
     gather = next(t for t in timings  # Eat's widest bucket, one launch
                   if t["entry"] == "gather" and t["C"] == EAT_BUCKETS[0][1])
+    emit({"total_wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name_, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches[name_], "max_abs_err": err,
