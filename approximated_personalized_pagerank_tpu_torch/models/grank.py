@@ -37,9 +37,11 @@ from ..ops.merge import (
     net_max_width,
     resolve_merge_algo,
 )
+from ..ops.merge_kernel import launch_count
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_grank_baskets
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.validation import (
     check_basket_params,
     check_damping,
@@ -103,7 +105,23 @@ def grank_baskets(
     runner from the host, so ``host_loop=True`` turns ``engine="auto"``
     into ``"sparse"``.  That is all it does here, where the loop always
     runs on the host.
+
+    With recording on (utils/profiling.py) the call is the span
+    ``grank.job``, its count ``half_sweeps`` the half-sweeps run; the
+    sparse engine without a mesh opens its parts inside it (``_sparse_run``).
     """
+    with span("grank.job") as job:
+        out, info = _grank_run(
+            graph, K, L, iterations, damping, tolerance, elem_budget, mesh,
+            host_loop, merge_algo, engine, matmul_dtype, exact_trunc, device)
+        if job:
+            job.count("half_sweeps", info["iterations_ran"])
+    return (out, info) if return_info else out
+
+
+def _grank_run(graph, K, L, iterations, damping, tolerance, elem_budget, mesh,
+               host_loop, merge_algo, engine, matmul_dtype, exact_trunc, device):
+    """``grank_baskets``' run, always returning ``(baskets, info)``."""
     check_basket_params(K, L)
     if host_loop and engine == "auto":
         engine = "sparse"
@@ -115,43 +133,56 @@ def grank_baskets(
     n = graph.num_nodes
     dense = use_dense_engine(n, engine, mesh=mesh)
     if n == 0:
-        out = empty_baskets(0, K, dev)
-        return (out, {"iterations_ran": 0}) if return_info else out
+        return empty_baskets(0, K, dev), {"iterations_ran": 0}
     if dense:
         return dense_grank_run(
             graph, K, L, iterations, damping, tolerance,
             matmul_dtype=matmul_dtype, exact_trunc=exact_trunc,
-            return_info=return_info, device=dev,
+            return_info=True, device=dev,
         )
     if mesh is not None:
         return ring_grank_baskets(
             graph, K, L, iterations, damping, tolerance, mesh=mesh,
-            elem_budget=elem_budget, merge_algo=algo, return_info=return_info,
+            elem_budget=elem_budget, merge_algo=algo, return_info=True,
         )
+    return _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget,
+                       algo, dev)
 
-    # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a power
-    # of two) and gives hub rows (deg > the largest aligned cap) multiple-of-
-    # sub caps and the hierarchical hub merge (see graph._assign_caps).
-    net = net_max_width(algo)
-    plan_L = L if net else None
-    plans = [
-        graph.merge_plan(0, L=plan_L, net_width=net),
-        graph.merge_plan(1, L=plan_L, net_width=net),
-    ]
-    hub_sub = max((net - 1) // L, 1) if net else None
-    dev_buckets = [device_plan(p, dev) for p in plans]
-    damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
 
-    basket = empty_baskets(n, L, dev)
-    _set_dangling(
-        basket,
-        np.concatenate([plans[0].dangling_rows, plans[1].dangling_rows]),
-        damping,
-    )
-    basket, _ = merge_sweep(
-        None, dev_buckets[0] + dev_buckets[1], damping_t, L, algo,
-        out_basket=basket, elem_budget=elem_budget, hub_sub=hub_sub,
-    )
+def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, dev):
+    """The sparse engine on one device.  Its spans: ``grank.upload`` (the
+    plans, the damping scalar, the empty baskets and the dangling rows;
+    count ``bytes``, what crosses from host to device), ``grank.init_sweep``,
+    a ``grank.half_sweep`` a turn of the loop (count ``merge_launches``,
+    the merge kernel's launches) and in it ``grank.diff_wait``, the host's
+    wait for the half-sweep's max diff.  The final cut is the job's own."""
+    n = graph.num_nodes
+    with span("grank.upload") as upload:
+        # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a
+        # power of two) and gives hub rows (deg > the largest aligned cap)
+        # multiple-of-sub caps and the hierarchical hub merge (see
+        # graph._assign_caps).
+        net = net_max_width(algo)
+        plan_L = L if net else None
+        plans = [
+            graph.merge_plan(0, L=plan_L, net_width=net),
+            graph.merge_plan(1, L=plan_L, net_width=net),
+        ]
+        hub_sub = max((net - 1) // L, 1) if net else None
+        dev_buckets = [device_plan(p, dev) for p in plans]
+        damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
+
+        basket = empty_baskets(n, L, dev)
+        dangling = np.concatenate([plans[0].dangling_rows, plans[1].dangling_rows])
+        _set_dangling(basket, dangling, damping)
+        if upload:
+            upload.count("bytes", damping_t.nbytes + 8 * dangling.size + sum(
+                b.rows.nbytes + b.succ.nbytes for part in dev_buckets for b in part))
+    with span("grank.init_sweep"):
+        basket, _ = merge_sweep(
+            None, dev_buckets[0] + dev_buckets[1], damping_t, L, algo,
+            out_basket=basket, elem_budget=elem_budget, hub_sub=hub_sub,
+        )
 
     compute_diff = tolerance >= 0
     # Per-partition maxDiff slots, initialised to the tolerance so each
@@ -160,20 +191,22 @@ def grank_baskets(
     active = 0
     i = 0
     while i < iterations and max(max_diff) >= tolerance:
-        basket, d = merge_sweep(
-            basket, dev_buckets[active], damping_t, L, algo,
-            compute_diff=compute_diff, elem_budget=elem_budget,
-            hub_sub=hub_sub,
-        )
-        max_diff[0] = float(d) if compute_diff else 0.0
+        with span("grank.half_sweep") as sweep:
+            launches = launch_count() if sweep else 0
+            basket, d = merge_sweep(
+                basket, dev_buckets[active], damping_t, L, algo,
+                compute_diff=compute_diff, elem_budget=elem_budget,
+                hub_sub=hub_sub,
+            )
+            if sweep:
+                sweep.count("merge_launches", launch_count() - launches)
+            with span("grank.diff_wait"):
+                max_diff[0] = float(d) if compute_diff else 0.0
         active = 1 - active
         max_diff[0], max_diff[1] = max_diff[1], max_diff[0]
         i += 1
 
-    out = keep_top_chunked(basket.ids, basket.scores, K)
-    if return_info:
-        return out, {"iterations_ran": i}
-    return out
+    return keep_top_chunked(basket.ids, basket.scores, K), {"iterations_ran": i}
 
 
 def grank(

@@ -45,6 +45,7 @@ from ..ops.walk import walk_baskets
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_mc_combine
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.validation import (
     check_basket_params,
     check_combine_passes,
@@ -96,7 +97,21 @@ def mccompletepathv2_baskets(
     ``engine`` says: the walks split each source chunk across the shards
     (bitwise the unsharded walks at the same chunk size), the combine is
     the ring's exact merge (``ring_mc_combine``); ``device`` is the mesh's.
+
+    With recording on (utils/profiling.py) the call is the span ``mc.job``;
+    the sparse engine without a mesh opens ``mc.walks`` and ``mc.combine``
+    (the plan's upload and the passes) inside it.
     """
+    with span("mc.job"):
+        return _mc_run(graph, K, L, iterations, damping, seed, combine_passes,
+                       elem_budget, merge_algo, engine, matmul_dtype, return_info,
+                       mesh, successor_choice, device)
+
+
+def _mc_run(graph, K, L, iterations, damping, seed, combine_passes, elem_budget,
+            merge_algo, engine, matmul_dtype, return_info, mesh, successor_choice,
+            device):
+    """``mccompletepathv2_baskets``' run."""
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
@@ -133,25 +148,27 @@ def mccompletepathv2_baskets(
             device=dev,
         )
 
-    basket = walk_baskets(
-        graph, L, iterations, damping, seed=seed, return_info=return_info,
-        stratified=stratified, merge_algo=algo, device=dev,
-    )
+    with span("mc.walks"):
+        basket = walk_baskets(
+            graph, L, iterations, damping, seed=seed, return_info=return_info,
+            stratified=stratified, merge_algo=algo, device=dev,
+        )
     info = None
     if return_info:
         basket, info = basket
-    net = net_max_width(algo)
-    plan = graph.merge_plan(None, L=L if net else None, net_width=net)
-    hub_sub = max((net - 1) // L, 1) if net else None
-    buckets = device_plan(plan, dev)
-    damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
-    # each pass reads the previous baskets and writes a copy (dangling rows
-    # keep their walk basket)
-    for _ in range(combine_passes):
-        basket, _ = merge_sweep(
-            basket, buckets, damping_t, L, algo, mode="mc_combine",
-            elem_budget=elem_budget, hub_sub=hub_sub,
-        )
+    with span("mc.combine"):
+        net = net_max_width(algo)
+        plan = graph.merge_plan(None, L=L if net else None, net_width=net)
+        hub_sub = max((net - 1) // L, 1) if net else None
+        buckets = device_plan(plan, dev)
+        damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
+        # each pass reads the previous baskets and writes a copy (dangling
+        # rows keep their walk basket)
+        for _ in range(combine_passes):
+            basket, _ = merge_sweep(
+                basket, buckets, damping_t, L, algo, mode="mc_combine",
+                elem_budget=elem_budget, hub_sub=hub_sub,
+            )
     # dangling nodes keep their walk basket {v: 1.0}
     # (mccompletepathv2.h:213-214: factor 1, no successor contributions)
     out = keep_top_chunked(basket.ids, basket.scores, K)

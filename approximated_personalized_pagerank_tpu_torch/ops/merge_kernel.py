@@ -459,6 +459,12 @@ def gather_merge_topl(
 fused_merge_topl.launches = collections.Counter()
 gather_merge_topl.launches = collections.Counter()
 
+
+def launch_count() -> int:
+    """Kernel launches of both entries so far, over every shape."""
+    return sum(fused_merge_topl.launches.values()) + sum(gather_merge_topl.launches.values())
+
+
 # While counting is on: by entry, [rows launched, {device: int64[6]}], the
 # kernel's counters of the rows that took its prune network (step 4d of
 # csrc/merge_topl.cu): the first when the cut split a run of equal totals,

@@ -1,16 +1,15 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port spends its time on the card.
 
-    python3 profile_port.py [grank|mc|dense|ring|gather|tiebranch]
+    python3 profile_port.py [mc|dense|ring|gather|tiebranch|recording]
 
 Runs the port's smoke cells under ``torch.profiler`` (no argument: the
-first four modes).  ``grank``: sparse GRank on Eat (K=50, L=100, 30
-half-sweeps, tol 1e-4) and two half-sweeps on
-``powerlaw_graph(1_000_000, 10_000_000, seed=7, locality=0.8)``.  ``mc``:
+first three modes).  Sparse GRank on Eat is the benchmark's cell
+(``ppr_bench/run.py --workload eat-grank --trace 1``).  ``mc``:
 sparse MCCompletePathV2 on Eat (K=50, L=200, R=1000, seed 1, as
 chip_smoke.py phase 4) and its walks alone (``walk_baskets``, the trace
 top-L included).  ``dense``: the dense engine on Eat (chip_smoke.py phase
-6): GRank as above, and MCCompletePathV2 through ``engine="auto"``.
+6): GRank (K=50, L=100, 30 half-sweeps, tol 1e-4), and MCCompletePathV2 through ``engine="auto"``.
 ``ring``: GRank on Eat as above through the ring (chip_smoke.py phase 7) at
 D=1 and at D=4 virtual shards on the one card.  Every cell runs twice
 unprofiled (a warm-up, then the timed call) and once profiled.  For each it
@@ -37,14 +36,18 @@ equal, and beside the copy without step 4d.  ``tiebranch`` sets step
 (``chip_smoke.py::live_count_rows``) at GRank's and MC's widths, built
 with the live form taking every m its lanes hold, with the dense network
 always and with no step 4d, beside the kernel as built (and on untied
-rows).  Needs a CUDA card.
+rows).  ``recording`` times sparse GRank on Eat with the program's span
+recording (``utils/profiling.record``) off and on, in blocks of jobs
+ordered off, on, on, off.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -326,6 +329,61 @@ def tie_branch() -> None:
     print(json.dumps({"cell": "tiebranch", "nvidia_smi": _card()}), flush=True)
 
 
+def recording_cost(eat, groups: int = 6, jobs: int = 10) -> None:
+    """The ``recording`` mode (see the module doc): ``groups`` groups of
+    four blocks of ``jobs`` jobs, recording off, on, on, off; one JSON line
+    of each block's seconds a job, their medians and spreads (interquartile
+    range over the median), each group's on / off - 1, the spans a job
+    records, and the host's nanoseconds for an empty span, off and on."""
+    from approximated_personalized_pagerank_tpu_torch import grank_baskets
+    from approximated_personalized_pagerank_tpu_torch.utils import profiling
+
+    spans_a_job = []
+
+    def block(on: bool) -> float:
+        with profiling.record() if on else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for _ in range(jobs):
+                grank_baskets(eat, K, L, 30, DAMPING, 1e-4, engine="sparse")
+                torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) / jobs
+        if on:
+            spans_a_job.append(len(profiling.recorded()) / jobs)
+        profiling.clear()
+        return t
+
+    def empty_span_ns(reps: int = 200_000) -> float:
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            with profiling.span("x"):
+                pass
+        return (time.perf_counter_ns() - t0) / reps
+
+    block(False)  # warm-up: builds the kernel, fills the allocator's pools
+    off, on, ratio = [], [], []
+    for _ in range(groups):
+        a, b, c, d = block(False), block(True), block(True), block(False)
+        off += [a, d]
+        on += [b, c]
+        ratio.append((b + c) / (a + d) - 1)
+    span_off_ns = empty_span_ns()
+    with profiling.record():
+        span_on_ns = empty_span_ns(20_000)
+    profiling.clear()
+
+    def spread(xs):
+        q1, _, q3 = statistics.quantiles(xs, n=4)
+        return (q3 - q1) / statistics.median(xs)
+
+    print(json.dumps({
+        "cell": "eat_grank_recording", "jobs_a_block": jobs, "off_s": off, "on_s": on,
+        "off_median_s": statistics.median(off), "on_median_s": statistics.median(on),
+        "off_spread": spread(off), "on_spread": spread(on), "on_over_off": ratio,
+        "on_over_off_median": statistics.median(ratio), "spans_a_job": max(spans_a_job),
+        "span_off_ns": span_off_ns, "span_on_ns": span_on_ns, "nvidia_smi": _card(),
+    }), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -338,23 +396,13 @@ def main() -> int:
         walk_baskets,
     )
     from approximated_personalized_pagerank_tpu_torch.ops.walk import _trace_chunks
-    from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
-    modes = sys.argv[1:] or ["grank", "mc", "dense", "ring"]
-    if set(modes) - {"grank", "mc", "dense", "ring", "gather", "tiebranch"}:
+    modes = sys.argv[1:] or ["mc", "dense", "ring"]
+    if set(modes) - {"mc", "dense", "ring", "gather", "tiebranch", "recording"}:
         print(f"profile_port: unknown mode in {modes}", file=sys.stderr)
         return 2
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     eat = load_eat_graph()
-    if "grank" in modes:
-        # Eat runs all 30 half-sweeps at this tolerance (chip_smoke.py phase 2)
-        profiled("eat_grank",
-                 lambda: grank_baskets(eat, K, L, 30, DAMPING, 1e-4, engine="sparse"),
-                 30, "half_sweep")
-        big = powerlaw_graph(1_000_000, 10_000_000, seed=7, locality=0.8)
-        profiled("powerlaw_1m_2_sweeps",
-                 lambda: grank_baskets(big, K, L, 2, DAMPING, -1.0, engine="sparse"),
-                 2, "half_sweep")
     if "mc" in modes:
         chunk = _trace_chunks(eat.num_nodes, MC_R, DAMPING, None, None, 32)[0]
         chunks = -(-eat.num_nodes // chunk)
@@ -380,6 +428,8 @@ def main() -> int:
         gather_stages(eat)
     if "tiebranch" in modes:
         tie_branch()
+    if "recording" in modes:
+        recording_cost(eat)
     if "ring" in modes:
         card = torch.device("cuda", 0)
         for d in (1, 4):
