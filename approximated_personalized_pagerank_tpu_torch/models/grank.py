@@ -15,13 +15,16 @@ Reference: ``ppr::grank`` (include/grank.h:42-150).  Semantics preserved:
 
 Baskets are ``[N, L]`` id/score tensors; each half-sweep merges the active
 partition's degree buckets (ops/merge.py).  The loop runs on the host and
-reads the half-sweep's max L1 diff once per half-sweep.  Graphs up to
+reads the half-sweep's max L1 diff once per half-sweep; on the card each
+partition's half-sweep is one CUDA graph, captured at its first turn and
+replayed after (``_SweepGraphs``).  Graphs up to
 16,384 nodes take the dense engine by default (ops/dense.py); with a
 ``mesh`` the run is the ring-sharded one (parallel/ring.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Hashable
 
 import numpy as np
@@ -37,7 +40,12 @@ from ..ops.merge import (
     net_max_width,
     resolve_merge_algo,
 )
-from ..ops.merge_kernel import launch_count
+from ..ops.merge_kernel import (
+    capture_counts,
+    launch_count,
+    load_library,
+    replay_counts,
+)
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_grank_baskets
 from ..utils.device import resolve_device
@@ -149,13 +157,90 @@ def _grank_run(graph, K, L, iterations, damping, tolerance, elem_budget, mesh,
                        algo, dev)
 
 
+class _SweepGraphs:
+    """GRank's half-sweeps on the card as CUDA graphs, one a partition.
+
+    Two static baskets take turns: partition 0's graph reads ``bufs[0]``
+    (the init sweep's basket) and writes ``bufs[1]``, partition 1's reads
+    ``bufs[1]`` and writes ``bufs[0]``, so after ``i`` half-sweeps the
+    newest basket is ``bufs[i % 2]``.  A graph's body is the eager
+    half-sweep: the source copied into the destination (the eager loop's
+    clone), then ``sweep(src, partition, dst)``, whose max diff tensor (the
+    second of what it returns) is the graph's static output.  Each graph
+    is captured at its partition's first half-sweep (span
+    ``grank.graph_capture``) and replayed then and at every later turn of
+    its partition.  Both capture on one side stream
+    into one memory pool, so the second capture reuses the blocks the
+    first one's temporaries freed.  A replay adds to the merge kernel's
+    counters (launches, tied rows) what its capture noted, so they count
+    what the card ran (``merge_kernel.capture_counts``).  Nothing
+    outlives the call: :meth:`release` drops the graphs, their outputs and
+    the older basket, then the pool, whose memory goes back to the card.
+    """
+
+    def __init__(self, basket: Baskets, sweep):
+        load_library()  # no build or load inside a capture
+        self.bufs = (basket, Baskets(torch.empty_like(basket.ids),
+                                     torch.empty_like(basket.scores)))
+        self.sweep = sweep
+        with torch.cuda.device(basket.ids.device):
+            self.pool = torch.cuda.MemPool()
+            self.stream = torch.cuda.Stream()
+        self.graphs = [None, None]
+        self.diffs = [None, None]
+        self.rises = [None, None]
+
+    def release(self) -> None:
+        """Free everything but the newest basket, which the caller holds.
+        The caller drops its own references to ``diffs`` first: a block
+        still in use keeps its segment of the pool from the card."""
+        self.graphs = self.diffs = self.bufs = None
+        self.pool = None  # MemPool's destructor frees the pool's memory
+
+    def run(self, p: int) -> torch.Tensor:
+        """Partition ``p``'s half-sweep: capture at its first turn, then
+        replay; returns its max diff (a 0-d tensor, the graph's output)."""
+        if self.graphs[p] is None:
+            with span("grank.graph_capture"):
+                self._capture(p)
+        self.graphs[p].replay()
+        replay_counts(self.rises[p])
+        return self.diffs[p]
+
+    def _capture(self, p: int) -> None:
+        src, dst = self.bufs[p], self.bufs[1 - p]
+        graph = torch.cuda.CUDAGraph()
+        with capture_counts(src.ids.device) as rise:
+            self.stream.wait_stream(torch.cuda.current_stream(src.ids.device))
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool.id)
+                try:
+                    dst.ids.copy_(src.ids)
+                    dst.scores.copy_(src.scores)
+                    _, self.diffs[p] = self.sweep(src, p, dst)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        self.graphs[p] = graph
+        self.rises[p] = rise
+
+
 def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, dev):
     """The sparse engine on one device.  Its spans: ``grank.upload`` (the
     plans, the damping scalar, the empty baskets and the dangling rows;
     count ``bytes``, what crosses from host to device), ``grank.init_sweep``,
-    a ``grank.half_sweep`` a turn of the loop (count ``merge_launches``,
-    the merge kernel's launches) and in it ``grank.diff_wait``, the host's
-    wait for the half-sweep's max diff.  The final cut is the job's own."""
+    a ``grank.half_sweep`` a turn of the loop (counts ``merge_launches``,
+    the merge kernel's launches, and ``graph_replays``, 1 where the
+    half-sweep ran as a CUDA graph's replay, else 0) and in it
+    ``grank.diff_wait``, the host's wait for the half-sweep's max diff, and
+    at each partition's first turn on the card ``grank.graph_capture``.
+    The final cut is the job's own.
+
+    On the card the half-sweeps replay CUDA graphs (``_SweepGraphs``),
+    bitwise the eager loop's baskets, with its counts; on the CPU the loop
+    is eager."""
     n = graph.num_nodes
     with span("grank.upload") as upload:
         # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a
@@ -185,26 +270,43 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
         )
 
     compute_diff = tolerance >= 0
+
+    def sweep(src, p, dst=None):
+        return merge_sweep(
+            src, dev_buckets[p], damping_t, L, algo, compute_diff=compute_diff,
+            out_basket=dst, elem_budget=elem_budget, hub_sub=hub_sub,
+        )
+
+    graphs = None
+    if dev.type == "cuda" and iterations > 0:
+        graphs = _SweepGraphs(basket, sweep)
     # Per-partition maxDiff slots, initialised to the tolerance so each
     # partition gets at least one sweep (include/grank.h:87-92).
     max_diff = [tolerance, tolerance]
     active = 0
     i = 0
-    while i < iterations and max(max_diff) >= tolerance:
-        with span("grank.half_sweep") as sweep:
-            launches = launch_count() if sweep else 0
-            basket, d = merge_sweep(
-                basket, dev_buckets[active], damping_t, L, algo,
-                compute_diff=compute_diff, elem_budget=elem_budget,
-                hub_sub=hub_sub,
-            )
-            if sweep:
-                sweep.count("merge_launches", launch_count() - launches)
-            with span("grank.diff_wait"):
-                max_diff[0] = float(d) if compute_diff else 0.0
-        active = 1 - active
-        max_diff[0], max_diff[1] = max_diff[1], max_diff[0]
-        i += 1
+    try:
+        while i < iterations and max(max_diff) >= tolerance:
+            with span("grank.half_sweep") as half:
+                launches = launch_count() if half else 0
+                if graphs is not None:
+                    d = graphs.run(active)
+                else:
+                    basket, d = sweep(basket, active)
+                if half:
+                    half.count("merge_launches", launch_count() - launches)
+                    half.count("graph_replays", int(graphs is not None))
+                with span("grank.diff_wait"):
+                    max_diff[0] = float(d) if compute_diff else 0.0
+            active = 1 - active
+            max_diff[0], max_diff[1] = max_diff[1], max_diff[0]
+            i += 1
+        if graphs is not None:
+            basket = graphs.bufs[i % 2]
+    finally:
+        if graphs is not None:
+            d = None
+            graphs.release()
 
     return keep_top_chunked(basket.ids, basket.scores, K), {"iterations_ran": i}
 

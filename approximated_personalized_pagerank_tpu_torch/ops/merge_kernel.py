@@ -19,7 +19,8 @@ Each has a plain PyTorch version, :func:`merge_topl_plain` and
 kernel is held against on the card.  A wrapper picks by the device of its
 input: the plain version for a CPU tensor, the kernel for a CUDA tensor (a
 failed build or launch raises; nothing falls back).  Each counts its kernel
-launches by ``(W, l_pad)`` in its ``launches`` attribute.
+launches by ``(W, l_pad)`` in its ``launches`` attribute; a CUDA graph's
+replays count the launches it captured (:func:`capture_counts`).
 
 Contract of the matrix entry: ``ids``/``scores`` are ``[C, W]``, W a power
 of two in [2, 8192], ids int32 with dead slots ``PAD_ID`` (no negative
@@ -56,6 +57,7 @@ in the last bits (``utils/compare.py::topl_max_error``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -492,6 +494,8 @@ def tied_row_counts() -> dict:
     Reads the card's counters, so it waits for their launches."""
     out = {}
     for name, (rows, counters) in (_tie_counts or {}).items():
+        if rows == 0:  # counters made for a capture whose graph never ran
+            continue
         total = [sum(x) for x in zip(*(buf.tolist() for buf in counters.values()))]
         out[name] = {"rows": rows, "split": total[0], "repeat_only": total[1],
                      "live_hist": dict(zip(LIVE_BUCKETS, total[2:]))}
@@ -508,3 +512,46 @@ def _tie_counter(entry: str, rows: int, device: torch.device) -> Optional[torch.
     if device not in seen[1]:
         seen[1][device] = torch.zeros(2 + len(LIVE_BUCKETS), dtype=torch.int64, device=device)
     return seen[1][device]
+
+
+_ENTRIES = {"fused_merge_topl": fused_merge_topl, "gather_merge_topl": gather_merge_topl}
+
+
+def _counts() -> dict:
+    """By entry: its launches by shape, and its rows counted for ties."""
+    return {name: (collections.Counter(f.launches),
+                   _tie_counts[name][0] if _tie_counts and name in _tie_counts else 0)
+            for name, f in _ENTRIES.items()}
+
+
+@contextlib.contextmanager
+def capture_counts(device: torch.device):
+    """Around a CUDA graph's capture on ``device``.  A capture launches
+    nothing, so on exit what it added to the launch counters and to the
+    tied rows is taken back and left in the yielded dict, for
+    :func:`replay_counts` to add at each replay.  While tied rows are
+    counted, their counters on ``device`` are made here, before the
+    capture: the graph's kernels then add into them at every replay."""
+    if _tie_counts is not None:
+        for name in _ENTRIES:
+            _tie_counter(name, 0, device)
+    before = _counts()
+    rise = {}
+    try:
+        yield rise
+    finally:
+        for name, now in _counts().items():
+            launches, rows = before[name]
+            rise[name] = (now[0] - launches, now[1] - rows)
+            _ENTRIES[name].launches.clear()
+            _ENTRIES[name].launches.update(launches)
+            if _tie_counts is not None and name in _tie_counts:
+                _tie_counts[name][0] = rows
+
+
+def replay_counts(rise: dict) -> None:
+    """Count one replay of a graph whose capture yielded ``rise``."""
+    for name, (launches, rows) in rise.items():
+        _ENTRIES[name].launches.update(launches)
+        if rows and _tie_counts is not None:
+            _tie_counts.setdefault(name, [0, {}])[0] += rows

@@ -21,9 +21,11 @@ reads them and :func:`clear` empties the buffer.
 The program's spans (PERF.md section 3 names the metric each one feeds):
 ``grank.job`` (every engine; count ``half_sweeps``) and, on the sparse
 engine without a mesh, ``grank.upload`` (count ``bytes``, host to device),
-``grank.init_sweep``, ``grank.half_sweep`` (count ``merge_launches``) and
-its child ``grank.diff_wait``; ``mc.job`` (every engine) and, on the sparse
-engine without a mesh, ``mc.walks`` and ``mc.combine``.
+``grank.init_sweep``, ``grank.half_sweep`` (counts ``merge_launches`` and
+``graph_replays``) and its children ``grank.diff_wait`` and, on the card at
+a partition's first turn, ``grank.graph_capture``; ``mc.job`` (every
+engine) and, on the sparse engine without a mesh, ``mc.walks`` and
+``mc.combine``.
 
 **Traces.**  ``trace(DIR)`` (the CLI's ``--profile DIR`` flag, or
 ``PPR_PROFILE_DIR``) writes the host operators, the card's kernels when one

@@ -100,8 +100,10 @@ def test_spans_of_sparse_calls_nest_by_job(graph):
         assert all(s.parent == job.id for s in sweeps)
         waits = _by_name(mine, "grank.diff_wait")
         assert sorted(w.parent for w in waits) == sorted(s.id for s in sweeps)
-        # on the CPU the kernel's wrappers run their plain versions: no launch
-        assert all(s.counts == {"merge_launches": 0} for s in sweeps)
+        # on the CPU the kernel's wrappers run their plain versions (no
+        # launch) and the loop is eager (no graph captured or replayed)
+        assert all(s.counts == {"merge_launches": 0, "graph_replays": 0} for s in sweeps)
+        assert _by_name(mine, "grank.graph_capture") == []
 
 
 def test_upload_bytes_are_the_uploaded_tensors(graph, monkeypatch):
@@ -231,7 +233,11 @@ def test_merge_launches_are_the_kernel_counters_increase_on_the_card(monkeypatch
     eat = pt.load_eat_graph()
     pt.grank_baskets(eat, 50, 100, 30, DAMPING, TOL, engine="sparse")  # builds the kernel
     deltas, counted = _merge_launches_per_sweep(eat, "cuda", monkeypatch)
-    assert counted == deltas[1:] and len(counted) == 30 and min(counted) > 0
+    # the half-sweeps replay CUDA graphs: merge_sweep runs at the init sweep
+    # and at each partition's capture, and each replay counts what its
+    # partition's capture launched
+    assert len(deltas) == 3 and len(counted) == 30 and min(counted) > 0
+    assert counted == [deltas[1 + i % 2] for i in range(30)]
 
 
 @pytest.mark.gpu
