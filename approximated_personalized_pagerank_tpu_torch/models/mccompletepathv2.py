@@ -99,8 +99,9 @@ def mccompletepathv2_baskets(
     the ring's exact merge (``ring_mc_combine``); ``device`` is the mesh's.
 
     With recording on (utils/profiling.py) the call is the span ``mc.job``;
-    the sparse engine without a mesh opens ``mc.walks`` and ``mc.combine``
-    (the plan's upload and the passes) inside it.
+    the sparse and dense engines without a mesh open ``mc.walks`` and
+    ``mc.combine`` (count ``passes``; on the sparse engine the plan's upload
+    and the passes) inside it.
     """
     with span("mc.job"):
         return _mc_run(graph, K, L, iterations, damping, seed, combine_passes,
@@ -156,7 +157,8 @@ def _mc_run(graph, K, L, iterations, damping, seed, combine_passes, elem_budget,
     info = None
     if return_info:
         basket, info = basket
-    with span("mc.combine"):
+    with span("mc.combine") as s:
+        s.count("passes", combine_passes)
         net = net_max_width(algo)
         plan = graph.merge_plan(None, L=L if net else None, net_width=net)
         hub_sub = max((net - 1) // L, 1) if net else None

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .basket import SENTINEL, Baskets
 
 __all__ = [
@@ -432,7 +433,9 @@ def dense_mc_run(
     ``combine_passes`` matrix products.
 
     ``return_info=True`` also returns ``{"walk_steps", "abandoned_walks",
-    "total_walks"}`` (see ops/walk.walk_baskets).
+    "total_walks"}`` (see ops/walk.walk_baskets).  With recording on
+    (utils/profiling.py) the walks are the span ``mc.walks`` and the combine
+    ``mc.combine`` (count ``passes``).
     """
     from .walk import walk_trace_basket_chunks
 
@@ -442,21 +445,24 @@ def dense_mc_run(
     # per-chunk counters stay on the device until one transfer at the end
     visit_parts, abandoned_parts = [], []
     ids_parts, score_parts = [], []
-    for _, top, v, a in walk_trace_basket_chunks(
-        graph, L, iterations, damping, seed=seed, stratified=stratified,
-        merge_algo=merge_algo, device=dev,
-    ):
-        visit_parts.append(v)
-        abandoned_parts.append(a)
-        ids_parts.append(top.ids)
-        score_parts.append(top.scores)
-    walk = Baskets(torch.cat(ids_parts), torch.cat(score_parts))
+    with span("mc.walks"):
+        for _, top, v, a in walk_trace_basket_chunks(
+            graph, L, iterations, damping, seed=seed, stratified=stratified,
+            merge_algo=merge_algo, device=dev,
+        ):
+            visit_parts.append(v)
+            abandoned_parts.append(a)
+            ids_parts.append(top.ids)
+            score_parts.append(top.scores)
+        walk = Baskets(torch.cat(ids_parts), torch.cat(score_parts))
     del ids_parts, score_parts
-    edges, factor = _mc_edges(graph, damping, dev)
-    out = _dense_mc_combine(
-        edges, factor, walk, _padded(n), L, K, combine_passes,
-        matmul_dtype or default_matmul_dtype(dev),
-    )
+    with span("mc.combine") as s:
+        s.count("passes", combine_passes)
+        edges, factor = _mc_edges(graph, damping, dev)
+        out = _dense_mc_combine(
+            edges, factor, walk, _padded(n), L, K, combine_passes,
+            matmul_dtype or default_matmul_dtype(dev),
+        )
     if not return_info:
         return out
     totals = torch.stack([torch.stack(visit_parts), torch.stack(abandoned_parts)])

@@ -30,10 +30,12 @@ equal visit multisets:
 
 The per-hop loop is plain tensor ops on the walk's device.  The host
 checks once per macro step whether any walk is alive (the JAX package's
-``while_loop`` condition); a macro step with no live walk would only record
-SENTINEL.  Counts are divided by the original ``R``
-(mccompletepathv2.h:158-160); dangling sources yield ``{v: 1.0}``
-(mccompletepathv2.h:162-163).
+``while_loop`` condition; span ``mc.alive_wait``); a macro step with no
+live walk would only record SENTINEL.  The trace engine counts its chunks
+(a mesh's shard slices each) and walked macro steps on the innermost open
+span (``mc.walks``; utils/profiling.py).  Counts are divided by the
+original ``R`` (mccompletepathv2.h:158-160); dangling sources yield
+``{v: 1.0}`` (mccompletepathv2.h:162-163).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import current, span
 from ..utils.prng import fold_in, prng_key, split, uniform_many
 from .basket import SENTINEL, Baskets, empty_baskets, keep_top
 from .merge import _merge_rows, resolve_merge_algo
@@ -181,13 +184,18 @@ def walk_trace_chunk(
     dev = sources.device
     width = macro_steps * unroll * slots
     trace = torch.full((c, width), SENTINEL, dtype=torch.int32, device=dev)
+    owner = current()  # mc.walks, where the engine opens it
+    owner.count("chunks")
     if slots == 0 or indices.shape[0] == 0:
         return trace, torch.zeros(c, dtype=torch.int64, device=dev)
 
     src2, cur, rem, alive = _cohort_init(start_deg, sources, total, slots)
     for step in range(macro_steps):
-        if not bool(alive.any()):
+        with span("mc.alive_wait"):
+            done = not bool(alive.any())
+        if done:
             break
+        owner.count("macro_steps")
         u_all, u2_all = _macro_draws(key, step, (unroll, c, slots), dev, rows=rows)
         col = step * unroll * slots
         for hop in range(unroll):

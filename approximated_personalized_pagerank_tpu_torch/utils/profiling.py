@@ -24,8 +24,12 @@ engine without a mesh, ``grank.upload`` (count ``bytes``, host to device),
 ``grank.init_sweep``, ``grank.half_sweep`` (counts ``merge_launches`` and
 ``graph_replays``) and its children ``grank.diff_wait`` and, on the card at
 a partition's first turn, ``grank.graph_capture``; ``mc.job`` (every
-engine) and, on the sparse engine without a mesh, ``mc.walks`` and
-``mc.combine``.
+engine) and, on the sparse and dense engines without a mesh, ``mc.walks``
+(counts ``chunks`` and ``macro_steps``: the walks' source chunks and the
+macro steps they walked) and ``mc.combine`` (count ``passes``); on every
+engine the walks' ``mc.alive_wait``, one a macro step, around the host's
+read of whether any walk is alive (the walker's one sync).  Code below a
+span adds to its counts through :func:`current`.
 
 **Traces.**  ``trace(DIR)`` (the CLI's ``--profile DIR`` flag, or
 ``PPR_PROFILE_DIR``) writes the host operators, the card's kernels when one
@@ -46,7 +50,8 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["Span", "clear", "dropped", "record", "recorded", "span", "trace"]
+__all__ = ["Span", "clear", "current", "dropped", "record", "recorded", "span",
+           "trace"]
 
 MAX_SPANS = 1 << 16
 # The Chrome trace's process that holds the program's spans.
@@ -138,6 +143,14 @@ def span(name: str):
     if _recording or _profiler_enabled():
         return _On(name)
     return _OFF
+
+
+def current():
+    """The handle of the innermost span open in this thread, or the
+    do-nothing handle where none is being recorded: code called inside a
+    span adds to its counts without being handed it."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1] if stack else _OFF
 
 
 @contextlib.contextmanager

@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 import approximated_personalized_pagerank_tpu_torch as pt
 from approximated_personalized_pagerank_tpu_torch.models import grank as grank_mod
 from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel
+from approximated_personalized_pagerank_tpu_torch.ops import walk as tw
 from approximated_personalized_pagerank_tpu_torch.utils import profiling
 from approximated_personalized_pagerank_tpu_torch.utils.synthetic import powerlaw_graph
 
@@ -59,11 +60,13 @@ def _by_name(spans, name):
 
 def test_nothing_is_recorded_without_record_or_a_profiler(graph):
     _grank(graph)
-    pt.mccompletepathv2_baskets(graph, K, L, 20, DAMPING, seed=1, engine="sparse",
-                                device="cpu")
+    for engine in ("sparse", "dense"):
+        pt.mccompletepathv2_baskets(graph, K, L, 20, DAMPING, seed=1, engine=engine,
+                                    device="cpu")
     assert profiling.recorded() == [] and profiling.dropped() == 0
     with profiling.span("x") as s:
         assert not s
+        assert profiling.current() is s
 
 
 @pytest.mark.parametrize("engine", ["sparse", "dense"])
@@ -134,14 +137,44 @@ def test_every_engine_has_the_root_span_and_mc_its_parts(graph):
                                     device="cpu")
         pt.mccompletepathv2_baskets(graph, K, L, 20, DAMPING, seed=1, engine="dense",
                                     device="cpu")
-    spans = profiling.recorded()
+    spans = [s for s in profiling.recorded() if s.name != "mc.alive_wait"]
     assert [(s.name, s.parent is None) for s in spans] == [
         ("grank.job", True), ("grank.job", True),
         ("mc.job", True), ("mc.walks", False), ("mc.combine", False),
-        ("mc.job", True),
+        ("mc.job", True), ("mc.walks", False), ("mc.combine", False),
     ]
     assert all(s.counts["half_sweeps"] > 0 for s in spans[:2])
     assert spans[3].parent == spans[4].parent == spans[2].id
+    assert spans[6].parent == spans[7].parent == spans[5].id
+    # each walk's alive checks are children of its mc.walks
+    waits = _by_name(profiling.recorded(), "mc.alive_wait")
+    assert waits and {w.parent for w in waits} == {spans[3].id, spans[6].id}
+
+
+@pytest.mark.parametrize("n,R,chunks", [(150, 20, 1), (1100, 200, 3)])
+def test_dense_mc_spans_and_counts_follow_the_plan(n, R, chunks):
+    """On the dense engine ``mc.walks`` (counts ``chunks``, ``macro_steps``)
+    and ``mc.combine`` (count ``passes``) sit in one ``mc.job``, with one
+    ``mc.alive_wait`` a walked macro step under ``mc.walks``, and at most
+    one more a chunk (the check that ends it before the horizon)."""
+    graph = powerlaw_graph(n, 6 * n, seed=5)
+    with profiling.record():
+        _, info = pt.mccompletepathv2_baskets(graph, K, L, R, DAMPING, seed=3, engine="dense",
+                                              combine_passes=3, return_info=True, device="cpu")
+    spans = profiling.recorded()
+    (job,) = _by_name(spans, "mc.job")
+    (walks,) = _by_name(spans, "mc.walks")
+    (comb,) = _by_name(spans, "mc.combine")
+    waits = _by_name(spans, "mc.alive_wait")
+    assert walks.parent == comb.parent == job.id and walks.end_ns <= comb.start_ns
+    assert all(w.parent == walks.id and w.job == job.id for w in waits)
+    assert comb.counts == {"passes": 3}
+    plan_chunk, _, _, _, plan_macro, _ = tw._trace_chunks(n, R, DAMPING, None, None, 32)
+    assert walks.counts["chunks"] == -(-n // plan_chunk) == chunks
+    steps = walks.counts["macro_steps"]
+    assert chunks <= steps <= chunks * plan_macro
+    assert steps <= len(waits) <= steps + chunks
+    assert info["walk_steps"] > 0
 
 
 def test_spans_and_profiler_events_share_a_clock(graph):
