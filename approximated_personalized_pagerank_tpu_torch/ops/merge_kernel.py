@@ -59,15 +59,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional, Tuple
 
 import torch
 
+from ._cuda_build import PKG_DIR, build_shared_object
 from .basket import (
     SENTINEL, Baskets, run_ends, run_sums, sort_rows_by_id,
 )
@@ -79,60 +76,18 @@ PAD_ID = 2**31 - 1
 # (ops/merge.net_max_width), so it equals the JAX package's width cap.
 MAX_KERNEL_WIDTH = 8192
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG_DIR, "csrc", "merge_topl.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+KERNEL_SOURCE = os.path.join(PKG_DIR, "csrc", "merge_topl.cu")
 
 _LIB = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the merge kernel cannot be built")
-    return path
-
-
 def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library.
-
-    The shared object is named after a digest of the source and flags, so
-    an edited source is rebuilt; the build writes a temporary file and
-    renames it, so a concurrent loader never sees half a library.
-    """
+    """Build (once per source version, :func:`build_shared_object`) and load
+    the kernel library."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    with open(KERNEL_SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"libppr_merge_topl_{digest}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {KERNEL_SOURCE}:\n"
-                    f"{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, so_path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+    so_path = build_shared_object(KERNEL_SOURCE, "libppr_merge_topl")
     lib = ctypes.CDLL(so_path)
     lib.ppr_merge_topl.restype = ctypes.c_int
     lib.ppr_merge_topl.argtypes = [

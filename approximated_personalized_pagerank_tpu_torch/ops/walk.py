@@ -28,12 +28,19 @@ equal visit multisets:
 * ``counts``: visits are scatter-added into dense ``[C, N+1]`` rows; the
   cross-check of the trace engine.
 
-The per-hop loop is plain tensor ops on the walk's device.  The host
-checks once per macro step whether any walk is alive (the JAX package's
-``while_loop`` condition; span ``mc.alive_wait``); a macro step with no
-live walk would only record SENTINEL.  The trace engine counts its chunks
-(a mesh's shard slices each) and walked macro steps on the innermost open
-span (``mc.walks``; utils/profiling.py).  Counts are divided by the
+On the card the trace engine walks each chunk in one launch of the walk
+cohort kernel (``ops/walk_kernel.py``, ``csrc/walk_cohort.cu``): a warp a
+source row, the draws in registers, bitwise the plain loop, whose rows
+each stop once none of their walks is alive.  The host reads back, once
+per chunk, the most macro steps a row began (span ``mc.alive_wait``).
+Elsewhere, and always in the counts engine, the per-hop loop is plain
+tensor ops on the walk's device, and the host checks once per macro step
+whether any walk is alive (the JAX package's ``while_loop`` condition;
+span ``mc.alive_wait``); a macro step with no live walk would only record
+SENTINEL.  The trace engine counts its chunks (a mesh's shard slices
+each), the chunks the kernel walked (``walk_kernel_chunks``) and walked
+macro steps on the innermost open span (``mc.walks``;
+utils/profiling.py).  Counts are divided by the
 original ``R`` (mccompletepathv2.h:158-160); dangling sources yield
 ``{v: 1.0}`` (mccompletepathv2.h:162-163).
 """
@@ -51,10 +58,12 @@ from ..utils.profiling import current, span
 from ..utils.prng import fold_in, prng_key, split, uniform_many
 from .basket import SENTINEL, Baskets, empty_baskets, keep_top
 from .merge import _merge_rows, resolve_merge_algo
+from .walk_kernel import walk_cohort
 
 __all__ = [
     "walk_counts_chunk",
     "walk_trace_chunk",
+    "walk_trace_plain",
     "walk_trace_basket_chunks",
     "walk_count_chunks",
     "walk_baskets",
@@ -179,16 +188,47 @@ def walk_trace_chunk(
     of ``total`` sources under ``key`` (a shard of it), and draw that
     chunk's numbers at their rows, so each row walks as in the whole chunk
     (rows never interact).
+
+    A CUDA chunk is walked by the walk cohort kernel
+    (:func:`ops.walk_kernel.walk_cohort`), which raises where it cannot
+    take the inputs (more than 32 slots, another dtype, a non-contiguous
+    tensor); the host's one read is its count of macro steps.  Other
+    chunks take the plain loop, :func:`walk_trace_plain`.
     """
+    owner = current()  # mc.walks, where the engine opens it
+    owner.count("chunks")
+    if sources.device.type != "cuda" or slots == 0 or indices.shape[0] == 0:
+        return walk_trace_plain(start_deg, indices, sources, key, damping, total,
+                                slots, macro_steps, unroll, stratified, rows)
+    trace, abandoned, walked = walk_cohort(
+        start_deg, indices, sources, key, damping, total, slots, macro_steps,
+        unroll, stratified=stratified, rows=rows,
+    )
+    owner.count("walk_kernel_chunks")
+    with span("mc.alive_wait"):
+        walked = int(walked)
+    owner.count("macro_steps", walked)
+    return trace, abandoned
+
+
+def walk_trace_plain(
+    start_deg, indices, sources, key, damping, total: int, slots: int,
+    macro_steps: int, unroll: int, stratified: bool = False,
+    rows: Tuple[int, int] | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`walk_trace_chunk` as plain tensor ops on the tensors' device:
+    :func:`_cohort_hop` a hop over the whole ``[C, S]`` cohort, and a host
+    check per macro step whether any walk is alive (span
+    ``mc.alive_wait``; walked macro steps counted on the innermost open
+    span).  What the CPU runs, and what the kernel is held against."""
     c = sources.shape[0]
     dev = sources.device
     width = macro_steps * unroll * slots
     trace = torch.full((c, width), SENTINEL, dtype=torch.int32, device=dev)
-    owner = current()  # mc.walks, where the engine opens it
-    owner.count("chunks")
     if slots == 0 or indices.shape[0] == 0:
         return trace, torch.zeros(c, dtype=torch.int64, device=dev)
 
+    owner = current()
     src2, cur, rem, alive = _cohort_init(start_deg, sources, total, slots)
     for step in range(macro_steps):
         with span("mc.alive_wait"):

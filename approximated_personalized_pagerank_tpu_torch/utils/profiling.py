@@ -25,11 +25,13 @@ engine without a mesh, ``grank.upload`` (count ``bytes``, host to device),
 ``graph_replays``) and its children ``grank.diff_wait`` and, on the card at
 a partition's first turn, ``grank.graph_capture``; ``mc.job`` (every
 engine) and, on the sparse and dense engines without a mesh, ``mc.walks``
-(counts ``chunks`` and ``macro_steps``: the walks' source chunks and the
-macro steps they walked) and ``mc.combine`` (count ``passes``); on every
-engine the walks' ``mc.alive_wait``, one a macro step, around the host's
-read of whether any walk is alive (the walker's one sync).  Code below a
-span adds to its counts through :func:`current`.
+(counts ``chunks``, ``walk_kernel_chunks`` and ``macro_steps``: the walks'
+source chunks, those the walk cohort kernel walked, and the macro steps
+they walked) and ``mc.combine`` (count ``passes``); on every engine the
+walks' ``mc.alive_wait``, around the walker's one sync: on the card one a
+source chunk, the read of the kernel's count of macro steps; elsewhere one
+a macro step, the read of whether any walk is alive.  Code below a span
+adds to its counts through :func:`current`.
 
 **Traces.**  ``trace(DIR)`` (the CLI's ``--profile DIR`` flag, or
 ``PPR_PROFILE_DIR``) writes the host operators, the card's kernels when one

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the fused merge kernel from the repository's sources and holds both
-of its entries (the matrix entry ``fused_merge_topl`` and the gather entry
+Builds the fused merge kernel and the walk cohort kernel from the
+repository's sources, and holds both of the merge kernel's entries (the
+matrix entry ``fused_merge_topl`` and the gather entry
 ``gather_merge_topl``) against their plain PyTorch versions on the card:
 modulo ties on rows of random scores, and bitwise (ids, score bits and
 order) on rows of exact sums whose totals tie, at every instantiation of
@@ -22,11 +23,13 @@ each:
   the hub path, and the gather entry on that graph's real basket state;
 * phase 4: MCCompletePathV2 on Eat (K=50, L=200, R=1000), scored against
   the oracle beside the sort pipeline, with the walks' checks (one chunk's
-  trace bitwise equal on the card and the CPU, threefry bits equal on
-  both, trace and counts engines equal, two runs of one seed equal, the
-  walk baskets' digest equal to the CPU plain pipeline's on the same
-  walks) and the kernel entries held and timed at the MC path's own
-  shapes;
+  trace bitwise equal on the card, walked by the walk cohort kernel, and
+  on the CPU, by the plain loop; threefry bits equal on both; trace and
+  counts engines equal; two runs of one seed equal; the walk baskets'
+  digest equal to the CPU plain pipeline's on the same walks), the walk
+  kernel held bitwise against the plain loop on the card and both timed
+  at Eat's chunk, and the merge kernel's entries held and timed at the MC
+  path's own shapes;
 * phase 5: the walks alone (R=200) on the phase 3 graph;
 * phase 6: the dense engine: (a) GRank on Eat, timed, its FLOP rate and
   quality; (b) dense (float32, exact truncation) against sparse on Eat,
@@ -46,7 +49,8 @@ each:
   at reduced sizes, and the north star, ``run_scale_torch`` at 4.8M nodes
   and 69M edges through ``bench_torch.py::bench_scale_full``, held to the
   TPU run's quality on the same graph, its MC jaccard printed beside the
-  TPU's;
+  TPU's, then on its graph the walk kernel against the plain loop, bitwise
+  and timed, at MC's first source chunk (32,768 rows);
 * phase 9: ``bench_torch.py``'s quick blocks (bench.py's Eat GRank and
   MC, dense, ring and 1M-node scale blocks), its keys held against
   bench.py's, its Eat GRank baskets against phase 2's digest.
@@ -128,6 +132,18 @@ LIVE_GATHER_FORMS = ((81, 100, 30, 1, 128, True), (81, 100, 81, 8, 128, True),
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Lane instructions/s an H100 SXM issues at most: 132 SMs x 4 schedulers
+# x 32 lanes x 1.98 GHz boost (Hopper architecture white paper).  The walk
+# kernel's work is integer instructions, which issue on more than one pipe
+# (IMAD on the FMA pipe, adds, shifts and logic on the ALU pipe), so its
+# peak is the issue rate, not the 64 INT32 lanes of an SM.
+ISSUE_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# Integer operations of one threefry-2x32 hash of 20 rounds: 20 x (add,
+# rotate, xor; a rotate is one funnel shift on sm_90), 5 key injections of
+# 2 adds, and the 2 adds of the start.  A slot's hop draws two uniforms,
+# one hash each; the hop's own work is not counted.
+THREEFRY_OPS = 20 * 3 + 5 * 2 + 2
+WALK_SOURCE = "approximated_personalized_pagerank_tpu_torch/csrc/walk_cohort.cu"
 KERNEL_SOURCE = "approximated_personalized_pagerank_tpu_torch/csrc/merge_topl.cu"
 REPLACES = "approximated_personalized_pagerank_tpu/ops/pallas/merge_kernel.py:91"
 ATOL = 1e-6
@@ -429,17 +445,19 @@ def measured_merges(graph, half_sweeps: int) -> int:
 
 
 def phase_device():
-    """Phase 0: the card, and the kernel's build time."""
-    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel
+    """Phase 0: the card, and the kernels' build times."""
+    from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel, walk_kernel
 
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     merge_kernel.load_library()
+    t1 = time.perf_counter()
+    walk_kernel.load_library()
     emit({"phase": 0, "device": name, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": time.perf_counter() - t0})
+          "kernel_build_s": t1 - t0, "walk_kernel_build_s": time.perf_counter() - t1})
     return name, count, smi
 
 
@@ -668,7 +686,7 @@ def tied_checks(rng: np.random.Generator, dev) -> tuple:
 
 
 def launch_counts():
-    """The two entries' launch counters, by (W, l_pad)."""
+    """The merge entries' launch counters, by (W, l_pad)."""
     from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
 
     return {"fused_merge_topl": mk.fused_merge_topl.launches,
@@ -676,12 +694,22 @@ def launch_counts():
 
 
 def clear_counts() -> None:
+    """Sets every kernel's launch count to 0: a phase's window opens."""
+    from approximated_personalized_pagerank_tpu_torch.ops import walk_kernel
+
     for counter in launch_counts().values():
         counter.clear()
+    walk_kernel.walk_cohort.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: dict(c) for name, c in launch_counts().items()}
+    """Each kernel's launches since clear_counts: the merge entries' by
+    (W, l_pad), the walk kernel's (one a source chunk) under "chunks"."""
+    from approximated_personalized_pagerank_tpu_torch.ops import walk_kernel
+
+    counts = {name: dict(c) for name, c in launch_counts().items()}
+    counts["walk_cohort"] = {"chunks": walk_kernel.walk_cohort.launches}
+    return counts
 
 
 def start_tie_counts() -> None:
@@ -703,7 +731,8 @@ def read_tie_counts() -> dict:
 
 
 def launches_json(counts: dict) -> dict:
-    return {name: {f"{w}x{lp}": v for (w, lp), v in sorted(c.items())}
+    return {name: {"x".join(map(str, k)) if isinstance(k, tuple) else k: v
+                   for k, v in sorted(c.items())}
             for name, c in counts.items()}
 
 
@@ -901,6 +930,69 @@ def mc_walk_checks(graph) -> dict:
             "trace": trace, "sources": srcs}
 
 
+def walk_kernel_timing(graph, R: int, seed: int) -> dict:
+    """The walk cohort kernel against the plain loop, both on the card, on
+    the graph's first source chunk of MC's walks at ``R`` under ``seed``:
+    trace, abandoned walks and macro steps bitwise equal (``max_abs_err``
+    is the largest difference read); each timed with CUDA events (the
+    kernel over several launches, the plain loop over one call, its host
+    syncs included), beside the kernel's bound.  Call it outside a launch
+    count's window: its launches are not a main path's."""
+    from approximated_personalized_pagerank_tpu_torch.ops import walk as tw
+    from approximated_personalized_pagerank_tpu_torch.utils import profiling, prng
+
+    n = graph.num_nodes
+    chunk, _, slots, total, macro, width = tw._trace_chunks(
+        n, R, DAMPING, None, None, MC_UNROLL)
+    dg = graph.device_graph("cuda")
+    srcs, real = tw._chunk_sources(0, n, chunk, "cuda")
+    key = prng.fold_in(tw._root_key(seed), 0)
+    damping_t = torch.tensor(DAMPING, dtype=torch.float32, device="cuda")
+    args = (dg.start_deg, dg.indices, srcs, key, damping_t, total, slots, macro, MC_UNROLL)
+
+    def walked(fn):
+        with profiling.record():
+            with profiling.span("mc.walks") as s:
+                out = fn(*args)
+        torch.cuda.synchronize()
+        profiling.clear()
+        return out, s.counts.get("macro_steps", 0)
+
+    (k_trace, k_ab), k_steps = walked(tw.walk_trace_chunk)
+    (p_trace, p_ab), p_steps = walked(tw.walk_trace_plain)
+    err = max(int((k_trace.long() - p_trace.long()).abs().max()),
+              int((k_ab - p_ab).abs().max()), abs(k_steps - p_steps))
+    check(err == 0, f"the walk kernel differs from the plain loop on the card ({n} nodes, "
+                    f"R={R}): largest difference {err}")
+    kernel_ms = time_ms(lambda: tw.walk_trace_chunk(*args), 10)
+    plain_ms = time_ms(lambda: tw.walk_trace_plain(*args), 1)
+    # the least work these inputs need.  Bytes: the trace and the rows'
+    # results written once, the sources read, and of the CSR only what the
+    # walks must touch: the (indptr, degree) row of each distinct node stood
+    # on and, for each distinct node stepped to, one entry of ``indices``.
+    # Operations: two threefry hashes for each slot's hop that steps (a
+    # visit); a hop at a dangling node (at most one a walk that ends,
+    # ``walk_ends``) draws too and is left out.  Both are lower bounds.
+    stepped = k_trace[k_trace >= 0].long()
+    visits = int(stepped.numel())
+    stepped = torch.unique(stepped)
+    stood = torch.unique(torch.cat([srcs, stepped]))
+    has_edges = dg.start_deg[srcs, 1] > 0
+    walk_ends = int((total - k_ab)[has_edges].sum())
+    nbytes = (k_trace.numel() * 4 + (chunk + 1) * 8 + srcs.numel() * 8
+              + stood.numel() * 16 + stepped.numel() * 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = visits * 2 * THREEFRY_OPS / ISSUE_OPS_PER_S * 1e3
+    bound, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {"nodes": n, "R": R, "seed": seed, "rows": chunk, "real_rows": real,
+            "slots": slots, "macro_steps": macro, "macro_steps_walked": k_steps,
+            "trace_width": width, "visits": visits, "walk_ends": walk_ends,
+            "nodes_stood_on": int(stood.numel()), "bytes": nbytes,
+            "abandoned": int(k_ab.sum()), "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "roofline_share": bound / kernel_ms, "max_abs_err": err}
+
+
 def cpu_walk_sha256(graph) -> str:
     """sha256 of phase 4's walk baskets (L=MC_L, R=MC_R, seed 1) as the
     CPU's kernel pipeline cuts them: every chunk's trace walked on the card
@@ -1028,7 +1120,8 @@ def phase_mc() -> dict:
     through the kernel, against the sort pipeline and the exact oracle.
     ``wall_s`` is the median of MC_REPEATS timed calls after a warm-up call;
     the launch counts are the first timed call's.  Returns the main path's
-    launches of each entry, and the largest kernel-vs-plain errors."""
+    launches of each entry, the largest kernel-vs-plain errors, and the walk
+    kernel's timing at Eat's first chunk."""
     from approximated_personalized_pagerank_tpu_torch import (
         benchmark_sampled,
         load_eat_graph,
@@ -1087,6 +1180,7 @@ def phase_mc() -> dict:
     stats, sort_stats = benchmark_sampled(samples, graph)
     digest = basket_sha256(baskets)
     walks = mc_walk_checks(graph)
+    walks["walk_kernel"] = walk_kernel_timing(graph, MC_R, 1)
     timings = mc_kernel_shapes(graph, walk, walks.pop("trace"), walks.pop("sources"))
     walk_digest = basket_sha256(walk)
     t0 = time.perf_counter()
@@ -1118,7 +1212,7 @@ def phase_mc() -> dict:
           "kernel and sort pipelines' MC jaccard differ by more than 0.01")
     errs = {"fused_merge_topl": max(t["max_abs_err"] for t in timings if t["entry"] == "matrix"),
             "gather_merge_topl": max(t["max_abs_err"] for t in timings if t["entry"] == "gather")}
-    return launches, errs
+    return launches, errs, walks["walk_kernel"]
 
 
 def phase_walk_scale(big) -> dict:
@@ -1852,7 +1946,8 @@ def north_star(smi: str) -> dict:
     half-sweeps, tol 1e-4; MC mc_l=100, R=200; 32 strict sources), each
     stage's line forwarded as it ends, the timed GRank's and MC's with
     their tied rows.  Held to the TPU run on the same graph up to tie
-    noise.  Returns its launches."""
+    noise.  Then, on its graph, the walk kernel against the plain loop at
+    MC's first source chunk (walk_kernel_timing).  Returns its launches."""
     bench = load_bench()
     stages = {}
 
@@ -1866,8 +1961,16 @@ def north_star(smi: str) -> dict:
         emit_examples("f: north star stage", smi, stage)
 
     clear_counts()
-    out, wall = timed(lambda: bench.bench_scale_full("cuda", log=forward, digests=True))
+    keep = {}
+    out, wall = timed(lambda: bench.bench_scale_full("cuda", log=forward, digests=True,
+                                                     keep=keep))
     launches = read_counts()
+    # outside the window: the walk kernel against the plain loop at MC's
+    # first source chunk on the north star's own graph
+    walk = walk_kernel_timing(keep.pop("graph"), out["scale_full_mc_r"],
+                              stages["mc"]["mc_seed"])
+    torch.cuda.empty_cache()
+    emit_examples("f: walk kernel at the north star's first chunk", smi, walk)
     emit_examples("f: north star", smi, {
         "wall_s": wall, **out, "tpu_v5e_mc_jaccard": TPU_V5E_MC_JACCARD,
         "peak_allocated_bytes": {
@@ -1945,7 +2048,7 @@ def main() -> int:
     max_err, g_err, timings = phase_kernel()
     eat_launches, eat_digest = phase_eat()
     scale_launches, big = phase_scale()
-    mc_launches, mc_errs = phase_mc()
+    mc_launches, mc_errs, walk_ms = phase_mc()
     walk_launches = phase_walk_scale(big)
     dense_launches = phase_dense(smi)
     ring_launches = phase_ring(big, smi)
@@ -1970,7 +2073,12 @@ def main() -> int:
          "bound_by": t["bound_by"], "library_ms": None}
         for name_, err, t in (("fused_merge_topl", max_err, matrix),
                               ("gather_merge_topl", g_err, gather))
-    ]})
+    ] + [{"name": "walk_cohort", "route": "cuda", "source": WALK_SOURCE,
+          "replaces": None, "launches": launches["walk_cohort"],
+          "max_abs_err": walk_ms["max_abs_err"],
+          "ms": walk_ms["ms"], "plain_ms": walk_ms["plain_ms"],
+          "bound_ms": walk_ms["bound_ms"], "bound_by": walk_ms["bound_by"],
+          "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

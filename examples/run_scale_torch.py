@@ -101,6 +101,7 @@ def run_scale(
     merge_algo=None,
     mc_seed: int = 1,
     digests: bool = False,
+    keep: dict | None = None,
 ) -> dict:
     """The north star's stages; returns the ``scale_full_*`` dict.
 
@@ -110,7 +111,8 @@ def run_scale(
     MC's (None: the kernel on the card); ``mc_seed`` MC's walk seed
     (run_scale.py's is 1).  ``digests`` adds the sha256 of GRank's and
     MC's final baskets (``scale_full_grank_sha256``,
-    ``scale_full_mc_sha256``), taken outside the timed stages.
+    ``scale_full_mc_sha256``), taken outside the timed stages.  ``keep``,
+    a dict, receives the graph (``keep["graph"]``).
     """
     if log is None:
         import functools
@@ -127,6 +129,8 @@ def run_scale(
     # --- build the graph ---
     t0 = st.start()
     graph = powerlaw_graph(nodes, edges, seed=seed, locality=locality)
+    if keep is not None:
+        keep.update(graph=graph)
     deg = graph.out_degree
     out["scale_full_max_out_degree"] = int(deg.max())
     out["scale_full_dangling_nodes"] = int((deg == 0).sum())

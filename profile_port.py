@@ -150,6 +150,7 @@ def _variant_libs(cuts, entry: str) -> dict:
     """The whole kernel and each variant (name, anchor, replacement) of its
     source, built in parallel into build/kernels/; name -> the C entry
     ``entry``."""
+    from approximated_personalized_pagerank_tpu_torch.ops import _cuda_build as cb
     from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel as mk
 
     whole = mk.load_library()
@@ -159,18 +160,18 @@ def _variant_libs(cuts, entry: str) -> dict:
     for name, old, new in cuts:
         if src.count(old) != 1:
             raise RuntimeError(f"variant {name!r}: its anchor is not in {mk.KERNEL_SOURCE}")
-        path = os.path.join(mk.BUILD_DIR, f"variant_{name}.cu")
+        path = os.path.join(cb.BUILD_DIR, f"variant_{name}.cu")
         with open(path, "w") as f:
             f.write(src.replace(old, new))
         procs[name] = subprocess.Popen(
-            [mk._nvcc(), *mk.NVCC_FLAGS, "-o", path[:-3] + ".so", path],
+            [cb.nvcc(), *cb.NVCC_FLAGS, "-o", path[:-3] + ".so", path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {"whole": getattr(whole, entry)}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
-        fn = getattr(ctypes.CDLL(os.path.join(mk.BUILD_DIR, f"variant_{name}.so")), entry)
+        fn = getattr(ctypes.CDLL(os.path.join(cb.BUILD_DIR, f"variant_{name}.so")), entry)
         fn.restype, fn.argtypes = ctypes.c_int, getattr(whole, entry).argtypes
         libs[name] = fn
     return libs
