@@ -14,12 +14,13 @@ Reference: ``ppr::grank`` (include/grank.h:42-150).  Semantics preserved:
 * final ``keepTop(K)`` truncation (include/grank.h:143-147).
 
 Baskets are ``[N, L]`` id/score tensors; each half-sweep merges the active
-partition's degree buckets (ops/merge.py).  The loop runs on the host and
-reads the half-sweep's max L1 diff once per half-sweep; on the card each
+partition's degree buckets (ops/merge.py).  The loop, its maxDiff slots and
+its spans live once in ops/loop.py (``run_half_sweeps``); the engines supply
+its half-sweep.  The sparse engine is this module's: on the card each
 partition's half-sweep is one CUDA graph, captured at its first turn and
-replayed after (``_SweepGraphs``).  Graphs up to
-16,384 nodes take the dense engine by default (ops/dense.py); with a
-``mesh`` the run is the ring-sharded one (parallel/ring.py).
+replayed after (``_SweepGraphs``).  Graphs up to 16,384 nodes take the
+dense engine by default (ops/dense.py); with a ``mesh`` the run is the
+ring-sharded one (parallel/ring.py).
 """
 
 from __future__ import annotations
@@ -33,23 +34,19 @@ import torch
 from ..graph import Graph
 from ..ops.basket import Baskets, empty_baskets, keep_top_chunked
 from ..ops.dense import dense_grank_run, use_dense_engine
+from ..ops.loop import run_half_sweeps
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
     device_plan,
     merge_sweep,
-    net_max_width,
+    plan_widths,
     resolve_merge_algo,
 )
-from ..ops.merge_kernel import (
-    capture_counts,
-    launch_count,
-    load_library,
-    replay_counts,
-)
+from ..ops.merge_kernel import capture_counts, load_library, replay_counts
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_grank_baskets
 from ..utils.device import resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import current, span
 from ..utils.validation import (
     check_basket_params,
     check_damping,
@@ -115,8 +112,9 @@ def grank_baskets(
     runs on the host.
 
     With recording on (utils/profiling.py) the call is the span
-    ``grank.job``, its count ``half_sweeps`` the half-sweeps run; the
-    sparse engine without a mesh opens its parts inside it (``_sparse_run``).
+    ``grank.job``, its count ``half_sweeps`` the half-sweeps run; inside it
+    every engine opens a ``grank.half_sweep`` a half-sweep (ops/loop.py),
+    and the sparse engine without a mesh its other parts (``_sparse_run``).
     """
     with span("grank.job") as job:
         out, info = _grank_run(
@@ -173,7 +171,8 @@ class _SweepGraphs:
     into one memory pool, so the second capture reuses the blocks the
     first one's temporaries freed.  A replay adds to the merge kernel's
     counters (launches, tied rows) what its capture noted, so they count
-    what the card ran (``merge_kernel.capture_counts``).  Nothing
+    what the card ran (``merge_kernel.capture_counts``), and adds 1 to the
+    open span's ``graph_replays`` (the loop's ``grank.half_sweep``).  Nothing
     outlives the call: :meth:`release` drops the graphs, their outputs and
     the older basket, then the pool, whose memory goes back to the card.
     """
@@ -205,6 +204,7 @@ class _SweepGraphs:
                 self._capture(p)
         self.graphs[p].replay()
         replay_counts(self.rises[p])
+        current().count("graph_replays")
         return self.diffs[p]
 
     def _capture(self, p: int) -> None:
@@ -231,29 +231,19 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
     """The sparse engine on one device.  Its spans: ``grank.upload`` (the
     plans, the damping scalar, the empty baskets and the dangling rows;
     count ``bytes``, what crosses from host to device), ``grank.init_sweep``,
-    a ``grank.half_sweep`` a turn of the loop (counts ``merge_launches``,
-    the merge kernel's launches, and ``graph_replays``, 1 where the
-    half-sweep ran as a CUDA graph's replay, else 0) and in it
-    ``grank.diff_wait``, the host's wait for the half-sweep's max diff, and
-    at each partition's first turn on the card ``grank.graph_capture``.
-    The final cut is the job's own.
+    the loop's (ops/loop.py) and at each partition's first turn on the card
+    ``grank.graph_capture``.  The final cut is the job's own.
 
     On the card the half-sweeps replay CUDA graphs (``_SweepGraphs``),
     bitwise the eager loop's baskets, with its counts; on the CPU the loop
     is eager."""
     n = graph.num_nodes
     with span("grank.upload") as upload:
-        # The kernel pipeline plans width-aligned caps (cap*L+1 lands at a
-        # power of two) and gives hub rows (deg > the largest aligned cap)
-        # multiple-of-sub caps and the hierarchical hub merge (see
-        # graph._assign_caps).
-        net = net_max_width(algo)
-        plan_L = L if net else None
+        plan_L, net, hub_sub = plan_widths(L, algo)
         plans = [
             graph.merge_plan(0, L=plan_L, net_width=net),
             graph.merge_plan(1, L=plan_L, net_width=net),
         ]
-        hub_sub = max((net - 1) // L, 1) if net else None
         dev_buckets = [device_plan(p, dev) for p in plans]
         damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
 
@@ -277,35 +267,23 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
             out_basket=dst, elem_budget=elem_budget, hub_sub=hub_sub,
         )
 
+    def step(p):
+        nonlocal basket
+        if graphs is not None:
+            d = graphs.run(p)
+        else:
+            basket, d = sweep(basket, p)
+        return d if compute_diff else None
+
     graphs = None
     if dev.type == "cuda" and iterations > 0:
         graphs = _SweepGraphs(basket, sweep)
-    # Per-partition maxDiff slots, initialised to the tolerance so each
-    # partition gets at least one sweep (include/grank.h:87-92).
-    max_diff = [tolerance, tolerance]
-    active = 0
-    i = 0
     try:
-        while i < iterations and max(max_diff) >= tolerance:
-            with span("grank.half_sweep") as half:
-                launches = launch_count() if half else 0
-                if graphs is not None:
-                    d = graphs.run(active)
-                else:
-                    basket, d = sweep(basket, active)
-                if half:
-                    half.count("merge_launches", launch_count() - launches)
-                    half.count("graph_replays", int(graphs is not None))
-                with span("grank.diff_wait"):
-                    max_diff[0] = float(d) if compute_diff else 0.0
-            active = 1 - active
-            max_diff[0], max_diff[1] = max_diff[1], max_diff[0]
-            i += 1
+        i = run_half_sweeps(step, iterations, tolerance)
         if graphs is not None:
             basket = graphs.bufs[i % 2]
     finally:
         if graphs is not None:
-            d = None
             graphs.release()
 
     return keep_top_chunked(basket.ids, basket.scores, K), {"iterations_ran": i}

@@ -9,7 +9,9 @@ the JAX package, every source walks at once (ops/walk.py) and the combine
 is a batched merge sweep over all nodes (``merge_sweep(mode="mc_combine")``,
 the sparse engine) or a matrix product over an ``[N, N]`` count matrix (the
 dense engine, ops/dense.py, which ``engine="auto"`` picks up to 32,768
-nodes), with R walks per node as in the reference.
+nodes), with R walks per node as in the reference.  The pipeline, the
+walks then the combine, is written once (``_mc_run``); the sparse engine,
+the dense engine and the ring (parallel/ring.py) supply the combine.
 
 ``combine_passes`` repeats the combine on the previous pass's baskets: the
 parallel analogue of the reference's propagation of already-combined
@@ -33,15 +35,15 @@ import torch
 
 from ..graph import Graph
 from ..ops.basket import empty_baskets, keep_top_chunked
-from ..ops.dense import MC_DENSE_MAX_NODES, dense_mc_run, use_dense_engine
+from ..ops.dense import MC_DENSE_MAX_NODES, dense_mc_combine, use_dense_engine
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
     device_plan,
     merge_sweep,
-    net_max_width,
+    plan_widths,
     resolve_merge_algo,
 )
-from ..ops.walk import walk_baskets
+from ..ops.walk import walk_rows
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_mc_combine
 from ..utils.device import resolve_device
@@ -98,10 +100,10 @@ def mccompletepathv2_baskets(
     (bitwise the unsharded walks at the same chunk size), the combine is
     the ring's exact merge (``ring_mc_combine``); ``device`` is the mesh's.
 
-    With recording on (utils/profiling.py) the call is the span ``mc.job``;
-    the sparse and dense engines without a mesh open ``mc.walks`` and
-    ``mc.combine`` (count ``passes``; on the sparse engine the plan's upload
-    and the passes) inside it.
+    With recording on (utils/profiling.py) the call is the span ``mc.job``,
+    with ``mc.walks`` and then ``mc.combine`` (count ``passes``: the
+    engine's combine, the final cut to K included) inside it on every
+    engine.
     """
     with span("mc.job"):
         return _mc_run(graph, K, L, iterations, damping, seed, combine_passes,
@@ -112,7 +114,8 @@ def mccompletepathv2_baskets(
 def _mc_run(graph, K, L, iterations, damping, seed, combine_passes, elem_budget,
             merge_algo, engine, matmul_dtype, return_info, mesh, successor_choice,
             device):
-    """``mccompletepathv2_baskets``' run."""
+    """``mccompletepathv2_baskets``' run: the walks-then-combine pipeline,
+    written once; the engine supplies the combine."""
     check_basket_params(K, L)
     check_iterations(iterations)
     check_damping(damping)
@@ -120,61 +123,49 @@ def _mc_run(graph, K, L, iterations, damping, seed, combine_passes, elem_budget,
     check_successor_choice(successor_choice)
     dev = resolve_device(device) if mesh is None else mesh.devices[0]
     algo = resolve_merge_algo(merge_algo, dev)
-    stratified = successor_choice == "stratified"
 
     n = graph.num_nodes
     if n == 0:
         out = empty_baskets(0, K, dev)
         return (out, {"walk_steps": 0}) if return_info else out
-    if mesh is not None:
-        basket = walk_baskets(
-            graph, L, iterations, damping, seed=seed, return_info=return_info,
-            stratified=stratified, merge_algo=algo, mesh=mesh,
-        )
-        info = None
-        if return_info:
-            basket, info = basket
-        out = ring_mc_combine(
-            graph, basket, K, L, damping, combine_passes, mesh=mesh,
-            elem_budget=elem_budget, merge_algo=algo,
-        )
-        return (out, info) if return_info else out
-
-    dense = use_dense_engine(n, engine, max_nodes=MC_DENSE_MAX_NODES)
+    dense = mesh is None and use_dense_engine(n, engine, max_nodes=MC_DENSE_MAX_NODES)
     if dense:
-        return dense_mc_run(
-            graph, K, L, iterations, damping, seed=seed,
-            combine_passes=combine_passes, matmul_dtype=matmul_dtype,
-            return_info=return_info, stratified=stratified, merge_algo=algo,
-            device=dev,
-        )
-
+        L = min(L, n)
     with span("mc.walks"):
-        basket = walk_baskets(
-            graph, L, iterations, damping, seed=seed, return_info=return_info,
-            stratified=stratified, merge_algo=algo, device=dev,
+        walk, read_info = walk_rows(
+            graph, L, iterations, damping, seed, None, None, None, "trace", mesh,
+            successor_choice == "stratified", algo, dev,
         )
-    info = None
-    if return_info:
-        basket, info = basket
     with span("mc.combine") as s:
         s.count("passes", combine_passes)
-        net = net_max_width(algo)
-        plan = graph.merge_plan(None, L=L if net else None, net_width=net)
-        hub_sub = max((net - 1) // L, 1) if net else None
-        buckets = device_plan(plan, dev)
-        damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
-        # each pass reads the previous baskets and writes a copy (dangling
-        # rows keep their walk basket)
-        for _ in range(combine_passes):
-            basket, _ = merge_sweep(
-                basket, buckets, damping_t, L, algo, mode="mc_combine",
-                elem_budget=elem_budget, hub_sub=hub_sub,
-            )
-    # dangling nodes keep their walk basket {v: 1.0}
+        if mesh is not None:
+            out = ring_mc_combine(graph, walk, K, L, damping, combine_passes, mesh=mesh,
+                                  elem_budget=elem_budget, merge_algo=algo)
+        elif dense:
+            out = dense_mc_combine(graph, walk, K, L, damping, combine_passes,
+                                   matmul_dtype, dev)
+        else:
+            out = _sparse_mc_combine(graph, walk, K, L, damping, combine_passes,
+                                     elem_budget, algo, dev)
+    return (out, read_info()) if return_info else out
+
+
+def _sparse_mc_combine(graph, walk, K, L, damping, combine_passes, elem_budget, algo,
+                       dev):
+    """The sparse engine's combine: ``combine_passes`` merge sweeps over every
+    node (``mode="mc_combine"``), then the cut to K."""
+    plan_L, net, hub_sub = plan_widths(L, algo)
+    buckets = device_plan(graph.merge_plan(None, L=plan_L, net_width=net), dev)
+    damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
+    # each pass reads the previous baskets and writes a copy; dangling nodes
+    # are in no bucket and keep their walk basket {v: 1.0}
     # (mccompletepathv2.h:213-214: factor 1, no successor contributions)
-    out = keep_top_chunked(basket.ids, basket.scores, K)
-    return (out, info) if return_info else out
+    for _ in range(combine_passes):
+        walk, _ = merge_sweep(
+            walk, buckets, damping_t, L, algo, mode="mc_combine",
+            elem_budget=elem_budget, hub_sub=hub_sub,
+        )
+    return keep_top_chunked(walk.ids, walk.scores, K)
 
 
 def mccompletepathv2_multi_baskets(

@@ -29,9 +29,10 @@ largest score (``keepTop``, include/internal/pprInternal.h:110-137).
   cut.
 
 Nodes are renumbered so that each 2-colouring partition is a contiguous
-row range; ``perm`` maps the partition order back to node ids.  The main
-loop runs on the host and reads the half-sweep's max L1 diff once per
-half-sweep, as the sparse engine does.
+row range; ``perm`` maps the partition order back to node ids.  This
+module is an engine: it supplies GRank's half-sweep to the one main loop
+(ops/loop.py) and MC's combine to the one walks-then-combine pipeline
+(models/mccompletepathv2.py), which own the reference's control.
 """
 
 from __future__ import annotations
@@ -43,14 +44,14 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.profiling import span
 from .basket import SENTINEL, Baskets
+from .loop import run_half_sweeps
 
 __all__ = [
     "DensePlan",
     "build_dense_plan",
     "dense_grank_run",
-    "dense_mc_run",
+    "dense_mc_combine",
     "default_matmul_dtype",
     "use_dense_engine",
 ]
@@ -255,31 +256,24 @@ def _dense_half(A, S, off: int, self_score, L: int, exact: bool,
 def _dense_run(A0, A1, S, perm, damping: float, tolerance: float, iterations: int,
                n: int, n0: int, n1: int, L: int, K: int, compute_diff: bool,
                exact_trunc: bool):
-    """GRank's main loop and final keepTop(K) (include/grank.h:87-147).
+    """GRank's half-sweeps through the one loop (ops/loop.py) and the final
+    keepTop(K) (include/grank.h:87-147).
 
-    ``iterations`` counts half-sweeps, partition 0 first; the two maxDiff
-    slots start at the tolerance so each partition runs at least once; a
-    partition with no rows still counts as a half-sweep (diff 0); without
-    ``compute_diff`` (a negative tolerance) the loop never stops early.
-    ``S`` is updated in place.  Returns ``(Baskets, half-sweeps run)``.
+    A partition with no rows still counts as a half-sweep (diff 0); without
+    ``compute_diff`` (a negative tolerance) no diff is computed.  ``S`` is
+    updated in place.  Returns ``(Baskets, half-sweeps run)``.
     """
     self_score = _self_score(damping, S.device)
-    # the comparisons are float32's, as in the JAX package's device loop
-    tol = float(np.float32(tolerance))
-    max_diff = [tol, tol]
     parts = ((A0, 0, n0), (A1, n0, n1))
-    h = 0
-    while h < iterations and max(max_diff) >= tol:
-        A, off, n_rows = parts[h % 2]
-        d = 0.0
-        if n_rows:
-            dd = _dense_half(A, S, off, self_score, L, exact_trunc, compute_diff)
-            if dd is not None:
-                d = float(dd)
-        # maxDiff[0] = d, then swap(maxDiff[0], maxDiff[1])
-        # (include/grank.h:94,123,140)
-        max_diff = [max_diff[1], d]
-        h += 1
+
+    def step(p):
+        A, off, n_rows = parts[p]
+        if not n_rows:
+            return None
+        return _dense_half(A, S, off, self_score, L, exact_trunc, compute_diff)
+
+    # the comparisons are float32's, as in the JAX package's device loop
+    h = run_half_sweeps(step, iterations, float(np.float32(tolerance)))
     return _topk_baskets(S, n, K, perm=perm), h
 
 
@@ -324,7 +318,8 @@ def dense_grank_run(
     return_info: bool = False,
     device=None,
 ):
-    """GRank end to end with the dense engine (see the module doc).
+    """The dense engine of GRank (see the module doc): the plan, the init,
+    the half-sweeps through the one loop (ops/loop.py) and the final cut.
 
     ``matmul_dtype``: a torch dtype (None: :func:`default_matmul_dtype`).
     ``return_info=True`` also returns
@@ -412,63 +407,16 @@ def _mc_edges(graph, damping: float, device):
     return (src, dst, ones), torch.as_tensor(factor).to(device)
 
 
-def dense_mc_run(
-    graph,
-    K: int,
-    L: int,
-    iterations: int,
-    damping: float,
-    seed: int | None = None,
-    combine_passes: int = 1,
-    matmul_dtype=None,
-    return_info: bool = False,
-    stratified: bool = False,
-    merge_algo: str | None = None,
-    device=None,
-):
-    """MCCompletePathV2 end to end with the dense engine: the trace
-    engine's walks (``ops/walk.walk_trace_basket_chunks``, ``merge_algo``
-    running their top-L) give exact top-L normalized count rows, which are
-    scattered into an [N, N] matrix; the combine runs as
-    ``combine_passes`` matrix products.
-
-    ``return_info=True`` also returns ``{"walk_steps", "abandoned_walks",
-    "total_walks"}`` (see ops/walk.walk_baskets).  With recording on
-    (utils/profiling.py) the walks are the span ``mc.walks`` and the combine
-    ``mc.combine`` (count ``passes``).
-    """
-    from .walk import walk_trace_basket_chunks
-
+def dense_mc_combine(graph, walk: Baskets, K: int, L: int, damping: float,
+                     combine_passes: int, matmul_dtype=None, device=None) -> Baskets:
+    """MCCompletePathV2's combine on the dense engine: the walks' ``[N, L]``
+    baskets (exact top-L normalized count rows) are scattered into an
+    ``[N, N]`` matrix and combined with ``combine_passes`` matrix products
+    (``matmul_dtype`` their input dtype; None: :func:`default_matmul_dtype`).
+    Returns the ``[N, K]`` baskets."""
     dev = resolve_device(device)
-    n = graph.num_nodes
-    L = min(L, n)
-    # per-chunk counters stay on the device until one transfer at the end
-    visit_parts, abandoned_parts = [], []
-    ids_parts, score_parts = [], []
-    with span("mc.walks"):
-        for _, top, v, a in walk_trace_basket_chunks(
-            graph, L, iterations, damping, seed=seed, stratified=stratified,
-            merge_algo=merge_algo, device=dev,
-        ):
-            visit_parts.append(v)
-            abandoned_parts.append(a)
-            ids_parts.append(top.ids)
-            score_parts.append(top.scores)
-        walk = Baskets(torch.cat(ids_parts), torch.cat(score_parts))
-    del ids_parts, score_parts
-    with span("mc.combine") as s:
-        s.count("passes", combine_passes)
-        edges, factor = _mc_edges(graph, damping, dev)
-        out = _dense_mc_combine(
-            edges, factor, walk, _padded(n), L, K, combine_passes,
-            matmul_dtype or default_matmul_dtype(dev),
-        )
-    if not return_info:
-        return out
-    totals = torch.stack([torch.stack(visit_parts), torch.stack(abandoned_parts)])
-    visits, abandoned = (int(x) for x in totals.sum(dim=1).cpu())
-    return out, {
-        "walk_steps": visits,
-        "abandoned_walks": abandoned,
-        "total_walks": int(iterations * damping) * int((graph.out_degree > 0).sum()),
-    }
+    edges, factor = _mc_edges(graph, damping, dev)
+    return _dense_mc_combine(
+        edges, factor, walk, _padded(graph.num_nodes), L, K, combine_passes,
+        matmul_dtype or default_matmul_dtype(dev),
+    )

@@ -108,6 +108,20 @@ def net_max_width(algo: str) -> int | None:
     return max_w if name == "kernel" else None
 
 
+def plan_widths(L: int, algo: str) -> Tuple[int | None, int | None, int | None]:
+    """``(plan_L, net, hub_sub)``: the merge plan's widths for baskets of
+    ``L`` under pipeline ``algo``.  The kernel pipeline plans width-aligned
+    caps (``plan_L = L``: cap*L+1 lands at a power of two) up to its width
+    cap ``net``, and gives hub rows (deg > the largest aligned cap) caps
+    that are multiples of ``hub_sub`` and the hierarchical hub merge (see
+    graph._assign_caps); the sort pipeline plans quarter-octave caps
+    (``plan_L`` and ``hub_sub`` None)."""
+    net = net_max_width(algo)
+    if not net:
+        return None, net, None
+    return L, net, max((net - 1) // L, 1)
+
+
 def _takes_kernel(algo: str, w: int) -> bool:
     """Whether a candidate row of width ``w`` goes through the kernel:
     the kernel pipeline, ``w >= MIN_NETWORK_WIDTH`` and its pow2 width

@@ -43,6 +43,9 @@ macro steps on the innermost open span (``mc.walks``;
 utils/profiling.py).  Counts are divided by the
 original ``R`` (mccompletepathv2.h:158-160); dangling sources yield
 ``{v: 1.0}`` (mccompletepathv2.h:162-163).
+
+MC's walks-then-combine pipeline lives in models/mccompletepathv2.py: it
+calls :func:`walk_rows` once for every engine, then the engine's combine.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ __all__ = [
     "walk_trace_basket_chunks",
     "walk_count_chunks",
     "walk_baskets",
+    "walk_rows",
     "default_max_steps",
 ]
 
@@ -669,6 +673,18 @@ def walk_baskets(
     (:func:`walk_trace_basket_chunks`; the trace engine) and puts the
     result on its first shard's device.
     """
+    baskets, read_info = walk_rows(graph, L, iterations, damping, seed, source_chunk,
+                                   max_steps, slots, engine, mesh, stratified,
+                                   merge_algo, device)
+    return (baskets, read_info()) if return_info else baskets
+
+
+def walk_rows(graph, L, iterations, damping, seed, source_chunk, max_steps, slots,
+              engine, mesh, stratified, merge_algo, device):
+    """:func:`walk_baskets`' walks: returns the baskets and a function that
+    reads their counters, ``walk_baskets``' info, in one transfer.  MC's
+    pipeline (models/mccompletepathv2.py) reads them after its combine, so
+    that transfer's wait does not stand between the walks and the combine."""
     dev = resolve_device(device) if mesh is None else mesh.devices[0]
     n = graph.num_nodes
     if engine == "auto" or mesh is not None:
@@ -703,18 +719,19 @@ def walk_baskets(
             score_parts.append(top.scores)
 
     if not ids_parts:
-        out = empty_baskets(0, L, dev)
-        info = {"walk_steps": 0, "abandoned_walks": 0, "total_walks": 0}
-        return (out, info) if return_info else out
+        return empty_baskets(0, L, dev), lambda: {
+            "walk_steps": 0, "abandoned_walks": 0, "total_walks": 0}
     # dangling sources: exactly {v: 1.0} (mccompletepathv2.h:162-163), from
     # the count normalisation, since their only count is R at themselves
     baskets = Baskets(torch.cat(ids_parts, dim=0), torch.cat(score_parts, dim=0))
-    if not return_info:
-        return baskets
-    totals = torch.stack([torch.stack(visit_parts), torch.stack(abandoned_parts)])
-    visits, abandoned = (int(x) for x in totals.sum(dim=1).cpu())
-    return baskets, {
-        "walk_steps": visits,
-        "abandoned_walks": abandoned,
-        "total_walks": int(iterations * damping) * int((graph.out_degree > 0).sum()),
-    }
+
+    def read_info():
+        totals = torch.stack([torch.stack(visit_parts), torch.stack(abandoned_parts)])
+        visits, abandoned = (int(x) for x in totals.sum(dim=1).cpu())
+        return {
+            "walk_steps": visits,
+            "abandoned_walks": abandoned,
+            "total_walks": int(iterations * damping) * int((graph.out_degree > 0).sum()),
+        }
+
+    return baskets, read_info

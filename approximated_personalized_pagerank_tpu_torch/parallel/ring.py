@@ -23,11 +23,11 @@ elements a shard; each round takes one rotation.  A shard's live buffers
 are its old basket shard, the one it holds, its out shard and the active
 round's candidates (:func:`ring_shard_bytes`).
 
-The loop runs on the host, one read of the half-sweep's max diff each, as
-the sparse engine's (models/grank.py).  The rotation is a copy to the next
-shard's device (none when both live on one device: a shard only reads what
-it holds) and ``torch.distributed`` point-to-point copies across a process
-boundary.  The plan is byte-equal to the JAX package's.
+GRank's main loop is the one of ops/loop.py, which reads each half-sweep's
+max diff once; the ring supplies the half-sweep.  The rotation is a copy to
+the next shard's device (none when both live on one device: a shard only
+reads what it holds) and ``torch.distributed`` point-to-point copies across
+a process boundary.  The plan is byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ import torch
 
 from ..graph import SENTINEL, Graph, _assign_caps
 from ..ops.basket import Baskets, keep_top_chunked, norm1_rows
-from ..ops.merge import _l_pad, _merge_rows, _scales, _takes_kernel, net_max_width
+from ..ops.loop import run_half_sweeps
+from ..ops.merge import _l_pad, _merge_rows, _scales, _takes_kernel, plan_widths
 from ..ops.merge_kernel import next_pow2
 from .mesh import Mesh, make_mesh, shard_size
 
@@ -102,7 +103,7 @@ def build_ring_plan(
     deg = graph.out_degree[nodes].astype(np.int64)
     buckets: List[RingBucket] = []
     if nodes.size:
-        caps = _assign_caps(deg, L if net_max_width(algo) is not None else None)
+        caps = _assign_caps(deg, plan_widths(L, algo)[0])
         owner = nodes // s
         for cap in np.unique(caps):
             cap = int(cap)
@@ -413,18 +414,14 @@ def ring_grank_baskets(
                                            p * s, L, algo)
 
     compute_diff = tolerance >= 0
-    # per-partition maxDiff slots, initialised to the tolerance so each
-    # partition gets at least one sweep (include/grank.h:87-92)
-    max_diff = [tolerance, tolerance]
-    active = 0
-    i = 0
-    while i < iterations and max(max_diff) >= tolerance:
-        baskets, diff = _sweep(mesh, baskets, rounds[active], dampings, s, L, algo,
+
+    def step(p):
+        nonlocal baskets
+        baskets, diff = _sweep(mesh, baskets, rounds[p], dampings, s, L, algo,
                                compute_diff)
-        max_diff[0] = float(diff) if compute_diff else 0.0
-        active = 1 - active
-        max_diff[0], max_diff[1] = max_diff[1], max_diff[0]
-        i += 1
+        return diff
+
+    i = run_half_sweeps(step, iterations, tolerance)
 
     out = _local_rows(mesh, [keep_top_chunked(b.ids, b.scores, K) for b in baskets], n)
     if not (return_info or analyze_memory):

@@ -19,19 +19,20 @@ activities are the program's alone.  Spans are kept in memory, at most
 reads them and :func:`clear` empties the buffer.
 
 The program's spans (PERF.md section 3 names the metric each one feeds):
-``grank.job`` (every engine; count ``half_sweeps``) and, on the sparse
-engine without a mesh, ``grank.upload`` (count ``bytes``, host to device),
-``grank.init_sweep``, ``grank.half_sweep`` (counts ``merge_launches`` and
-``graph_replays``) and its children ``grank.diff_wait`` and, on the card at
-a partition's first turn, ``grank.graph_capture``; ``mc.job`` (every
-engine) and, on the sparse and dense engines without a mesh, ``mc.walks``
-(counts ``chunks``, ``walk_kernel_chunks`` and ``macro_steps``: the walks'
-source chunks, those the walk cohort kernel walked, and the macro steps
-they walked) and ``mc.combine`` (count ``passes``); on every engine the
-walks' ``mc.alive_wait``, around the walker's one sync: on the card one a
-source chunk, the read of the kernel's count of macro steps; elsewhere one
-a macro step, the read of whether any walk is alive.  Code below a span
-adds to its counts through :func:`current`.
+``grank.job`` (every engine; count ``half_sweeps``) and in it, on every
+engine, the main loop's (ops/loop.py) ``grank.half_sweep`` (counts
+``merge_launches`` and ``graph_replays``) with its child ``grank.diff_wait``;
+on the sparse engine without a mesh also ``grank.upload`` (count
+``bytes``, host to device), ``grank.init_sweep`` and, on the card at a
+partition's first turn, ``grank.graph_capture`` inside the half-sweep;
+``mc.job`` (every engine) and in it, on every engine, ``mc.walks``
+(counts ``chunks``, ``walk_kernel_chunks`` and ``macro_steps``: the
+walks' source chunks, those the walk cohort kernel walked, and the macro
+steps they walked) and ``mc.combine`` (count ``passes``); inside
+``mc.walks`` the walks' ``mc.alive_wait``, around the walker's one sync: on
+the card one a source chunk, the read of the kernel's count of macro
+steps; elsewhere one a macro step, the read of whether any walk is alive.
+Code below a span adds to its counts through :func:`current`.
 
 **Traces.**  ``trace(DIR)`` (the CLI's ``--profile DIR`` flag, or
 ``PPR_PROFILE_DIR``) writes the host operators, the card's kernels when one

@@ -36,7 +36,7 @@ from approximated_personalized_pagerank_tpu_torch import (
     sample_result,
 )
 from approximated_personalized_pagerank_tpu_torch.ops.merge import (
-    net_max_width,
+    plan_widths,
     resolve_merge_algo,
 )
 from approximated_personalized_pagerank_tpu_torch.utils import io
@@ -140,8 +140,7 @@ def run_scale(
 
     # --- prep: the 2-colouring and the merge plans, on the host ---
     algo = resolve_merge_algo(merge_algo, dev)
-    net = net_max_width(algo)
-    plan_L = L if net else None
+    plan_L, net, _ = plan_widths(L, algo)
     t0 = st.start()
     graph.csc
     csc_s = time.perf_counter() - t0
@@ -149,7 +148,7 @@ def run_scale(
     colouring_s = time.perf_counter() - t0 - csc_s
     plans = [graph.merge_plan(p, L=plan_L, net_width=net) for p in (0, 1)]
     if not skip_mc:
-        graph.merge_plan(None, L=mc_l if net else None, net_width=net)
+        graph.merge_plan(None, L=plan_widths(mc_l, algo)[0], net_width=net)
     out["scale_full_prep_s"] = st.end(
         "prep", t0, csc_s=csc_s, colouring_s=colouring_s,
         partition_sizes=[int((part == 0).sum()), int((part == 1).sum())],

@@ -129,26 +129,39 @@ def test_upload_bytes_are_the_uploaded_tensors(graph, monkeypatch):
 
 
 def test_every_engine_has_the_root_span_and_mc_its_parts(graph):
+    """Every GRank engine runs the one loop (ops/loop.py), so the dense and
+    ring jobs hold a ``grank.half_sweep`` a half-sweep, each with its
+    ``grank.diff_wait``; every MC engine, the mesh's included, runs the one
+    pipeline: ``mc.walks``, then ``mc.combine``."""
     mesh = pt.make_mesh(2, [torch.device("cpu")] * 2)
     with profiling.record():
-        _grank(graph, engine="dense")
-        _grank(graph, engine="auto", mesh=mesh)
-        pt.mccompletepathv2_baskets(graph, K, L, 20, DAMPING, seed=1, engine="sparse",
-                                    device="cpu")
-        pt.mccompletepathv2_baskets(graph, K, L, 20, DAMPING, seed=1, engine="dense",
-                                    device="cpu")
+        infos = [_grank(graph, engine="dense")[1], _grank(graph, engine="auto", mesh=mesh)[1]]
+        for kw in (dict(engine="sparse", device="cpu"), dict(engine="dense", device="cpu"),
+                   dict(mesh=mesh)):
+            pt.mccompletepathv2_baskets(graph, K, L, 20, DAMPING, seed=1, **kw)
     spans = [s for s in profiling.recorded() if s.name != "mc.alive_wait"]
-    assert [(s.name, s.parent is None) for s in spans] == [
-        ("grank.job", True), ("grank.job", True),
-        ("mc.job", True), ("mc.walks", False), ("mc.combine", False),
-        ("mc.job", True), ("mc.walks", False), ("mc.combine", False),
-    ]
-    assert all(s.counts["half_sweeps"] > 0 for s in spans[:2])
-    assert spans[3].parent == spans[4].parent == spans[2].id
-    assert spans[6].parent == spans[7].parent == spans[5].id
+    jobs = {}
+    for s in spans:
+        jobs.setdefault(s.job, []).append(s)
+    jobs = list(jobs.values())
+    assert len(jobs) == 5
+    for info, (job, *parts) in zip(infos, jobs[:2]):
+        assert job.name == "grank.job" and job.parent is None
+        ran = info["iterations_ran"]
+        assert ran > 0 and job.counts["half_sweeps"] == ran
+        assert [s.name for s in parts] == ["grank.half_sweep", "grank.diff_wait"] * ran
+        sweeps, waits = parts[::2], parts[1::2]
+        assert all(s.parent == job.id for s in sweeps)
+        assert [w.parent for w in waits] == [s.id for s in sweeps]
+        # on the CPU no merge kernel launches and no graph replays
+        assert all(s.counts == {"merge_launches": 0, "graph_replays": 0} for s in sweeps)
+    for job, *parts in jobs[2:]:
+        assert [(s.name, s.parent) for s in (job, *parts)] == [
+            ("mc.job", None), ("mc.walks", job.id), ("mc.combine", job.id)]
+        assert parts[1].counts == {"passes": 2}
     # each walk's alive checks are children of its mc.walks
     waits = _by_name(profiling.recorded(), "mc.alive_wait")
-    assert waits and {w.parent for w in waits} == {spans[3].id, spans[6].id}
+    assert waits and {w.parent for w in waits} == {j[1].id for j in jobs[2:]}
 
 
 @pytest.mark.parametrize("n,R,chunks", [(150, 20, 1), (1100, 200, 3)])
