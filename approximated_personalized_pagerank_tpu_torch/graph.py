@@ -29,6 +29,7 @@ packages sweep the same rows in the same buckets.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import (
     Any, Dict, Hashable, Iterable, List, Mapping, NamedTuple, Sequence, Tuple,
 )
@@ -197,6 +198,10 @@ class Graph:
         self._partition: np.ndarray | None = None
         self._plans: Dict[Any, MergePlan] = {}
         self._device_graphs: Dict[str, DeviceGraph] = {}
+        # sparse GRank's captured half-sweeps on the card, kept between
+        # calls (models/grank.py::_SweepGraphs); the lock is held for a call
+        self._sweep_graphs = None
+        self._sweep_lock = threading.Lock()
 
     # ------------------------------------------------------------------ vocab
     @property
@@ -431,6 +436,25 @@ class Graph:
                 indices=torch.as_tensor(self.indices.astype(np.int64)).to(dev),
             )
         return self._device_graphs[str(dev)]
+
+    def release_device_state(self) -> None:
+        """Free what sparse GRank keeps on the card between calls: its
+        captured half-sweep graphs, their two baskets, their memory pool and
+        the device plans.  The next call on the card captures again.  A
+        no-op where nothing is kept; waits for a call in another thread."""
+        with self._sweep_lock:
+            kept, self._sweep_graphs = self._sweep_graphs, None
+            if kept is not None:
+                kept.release()
+
+    def __getstate__(self) -> dict:
+        # what is kept on the card, and the lock, stay with this object
+        state = dict(self.__dict__, _sweep_graphs=None)
+        del state["_sweep_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state, _sweep_lock=threading.Lock())
 
     def __repr__(self) -> str:
         return f"Graph(num_nodes={self.num_nodes}, num_edges={self.num_edges})"

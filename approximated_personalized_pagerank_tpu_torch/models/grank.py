@@ -18,9 +18,9 @@ partition's degree buckets (ops/merge.py).  The loop, its maxDiff slots and
 its spans live once in ops/loop.py (``run_half_sweeps``); the engines supply
 its half-sweep.  The sparse engine is this module's: on the card each
 partition's half-sweep is one CUDA graph, captured at its first turn and
-replayed after (``_SweepGraphs``).  Graphs up to 16,384 nodes take the
-dense engine by default (ops/dense.py); with a ``mesh`` the run is the
-ring-sharded one (parallel/ring.py).
+replayed after, kept on the ``Graph`` for later calls (``_SweepGraphs``).
+Graphs up to 16,384 nodes take the dense engine by default (ops/dense.py);
+with a ``mesh`` the run is the ring-sharded one (parallel/ring.py).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..graph import Graph
-from ..ops.basket import Baskets, empty_baskets, keep_top_chunked
+from ..ops.basket import SENTINEL, Baskets, empty_baskets, keep_top_chunked
 from ..ops.dense import dense_grank_run, use_dense_engine
 from ..ops.loop import run_half_sweeps
 from ..ops.merge import (
@@ -42,7 +42,7 @@ from ..ops.merge import (
     plan_widths,
     resolve_merge_algo,
 )
-from ..ops.merge_kernel import capture_counts, load_library, replay_counts
+from ..ops.merge_kernel import capture_counts, load_library, replay_counts, tie_counting
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_grank_baskets
 from ..utils.device import resolve_device
@@ -56,9 +56,10 @@ from ..utils.validation import (
 from .common import baskets_to_dict
 
 
-def _set_dangling(basket: Baskets, rows: np.ndarray, damping: float) -> Baskets:
-    """Dangling nodes' baskets are exactly {v: 1-damping}, forever (in place)."""
-    if rows.size == 0:
+def _set_dangling(basket: Baskets, rows, damping: float) -> Baskets:
+    """Dangling nodes' baskets are exactly {v: 1-damping}, forever (in place).
+    ``rows``: a host array, or an int64 tensor on the baskets' device."""
+    if len(rows) == 0:
         return basket
     rows_d = torch.as_tensor(rows, dtype=torch.int64).to(basket.ids.device)
     basket.ids[rows_d, 0] = rows_d.to(torch.int32)
@@ -155,57 +156,139 @@ def _grank_run(graph, K, L, iterations, damping, tolerance, elem_budget, mesh,
                        algo, dev)
 
 
+def _plans(graph: Graph, L: int, algo: str, dev: torch.device) -> tuple:
+    """The sparse engine's upload: both partitions' merge plans on ``dev``
+    (``device_plan``), the dangling rows (a host array) and ``hub_sub``."""
+    plan_L, net, hub_sub = plan_widths(L, algo)
+    plans = [graph.merge_plan(p, L=plan_L, net_width=net) for p in (0, 1)]
+    dangling = np.concatenate([plans[0].dangling_rows, plans[1].dangling_rows])
+    return [device_plan(p, dev) for p in plans], dangling, hub_sub
+
+
+def _plan_bytes(dev_buckets) -> int:
+    return sum(b.rows.nbytes + b.succ.nbytes for part in dev_buckets for b in part)
+
+
+def _sweep_key(dev: torch.device, L: int, algo: str, elem_budget: int,
+               compute_diff: bool) -> tuple:
+    """What a call's captured half-sweeps depend on, beside the graph: the
+    device, the basket width, the resolved merge pipeline, the element
+    budget and whether the diff is computed (``tolerance >= 0``); and
+    whether and into which counters the kernel counts tied rows
+    (``merge_kernel.tie_counting``).  ``iterations``, ``K`` and ``damping``
+    are not in it: the loop, the final cut and the damping tensor's value
+    are the call's own."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev, L, algo, elem_budget, compute_diff, tie_counting()
+
+
 class _SweepGraphs:
-    """GRank's half-sweeps on the card as CUDA graphs, one a partition.
+    """The sparse engine's state on the card, kept on its ``Graph``
+    (``Graph._sweep_graphs``) between calls of one :func:`_sweep_key`: the
+    device plans, the dangling rows, the damping tensor the graphs read,
+    two static baskets, and each partition's half-sweep as a CUDA graph.
 
     Two static baskets take turns: partition 0's graph reads ``bufs[0]``
     (the init sweep's basket) and writes ``bufs[1]``, partition 1's reads
     ``bufs[1]`` and writes ``bufs[0]``, so after ``i`` half-sweeps the
     newest basket is ``bufs[i % 2]``.  A graph's body is the eager
     half-sweep: the source copied into the destination (the eager loop's
-    clone), then ``sweep(src, partition, dst)``, whose max diff tensor (the
-    second of what it returns) is the graph's static output.  Each graph
-    is captured at its partition's first half-sweep (span
+    clone), then :meth:`sweep`, whose max diff tensor (the second of what
+    it returns) is the graph's static output.  Each graph is captured at
+    its partition's first half-sweep under this state (span
     ``grank.graph_capture``) and replayed then and at every later turn of
-    its partition.  Both capture on one side stream
-    into one memory pool, so the second capture reuses the blocks the
-    first one's temporaries freed.  A replay adds to the merge kernel's
-    counters (launches, tied rows) what its capture noted, so they count
-    what the card ran (``merge_kernel.capture_counts``), and adds 1 to the
-    open span's ``graph_replays`` (the loop's ``grank.half_sweep``).  Nothing
-    outlives the call: :meth:`release` drops the graphs, their outputs and
-    the older basket, then the pool, whose memory goes back to the card.
+    its partition, in this call and the later ones.  Both capture on one
+    side stream into one memory pool, so the second capture reuses the
+    blocks the first one's temporaries freed.  A replay adds to the merge
+    kernel's counters (launches, tied rows) what its capture noted, so
+    they count what the card ran (``merge_kernel.capture_counts``), and
+    adds 1 to the open span's ``graph_replays`` (the loop's
+    ``grank.half_sweep``).
+
+    Every call starts from :meth:`reset` and runs every half-sweep: graphs
+    are kept, results never.  :meth:`release` (``Graph.release_device_state``,
+    a call of another key, a call that raised, or the collection of the
+    ``Graph``) drops the graphs, their outputs and the baskets, then the
+    pool, whose memory goes back to the card; a pool is not reused for new
+    captures.
     """
 
-    def __init__(self, basket: Baskets, sweep):
+    def __init__(self, graph: Graph, key: tuple, L: int, algo: str, elem_budget: int,
+                 compute_diff: bool, dev: torch.device):
         load_library()  # no build or load inside a capture
-        self.bufs = (basket, Baskets(torch.empty_like(basket.ids),
-                                     torch.empty_like(basket.scores)))
-        self.sweep = sweep
-        with torch.cuda.device(basket.ids.device):
-            self.pool = torch.cuda.MemPool()
-            self.stream = torch.cuda.Stream()
+        self.key = key
+        self.L, self.algo, self.elem_budget = L, algo, elem_budget
+        self.compute_diff = compute_diff
+        self.dev_buckets, dangling, self.hub_sub = _plans(graph, L, algo, dev)
+        self.dangling = torch.as_tensor(dangling, dtype=torch.int64).to(dev)
+        self.damping = torch.empty((), dtype=torch.float32, device=dev)
+        self.upload_bytes = (self.damping.nbytes + self.dangling.nbytes
+                             + _plan_bytes(self.dev_buckets))
+        n = graph.num_nodes
         self.graphs = [None, None]
         self.diffs = [None, None]
         self.rises = [None, None]
+        self.bufs = (empty_baskets(n, L, dev), empty_baskets(n, L, dev))
+        with torch.cuda.device(dev):
+            self.pool = torch.cuda.MemPool()
+            self.stream = torch.cuda.Stream()
+            self.done = torch.cuda.Event()
 
     def release(self) -> None:
-        """Free everything but the newest basket, which the caller holds.
-        The caller drops its own references to ``diffs`` first: a block
-        still in use keeps its segment of the pool from the card."""
+        """Free the graphs, the baskets and the pool.  No reference to
+        ``diffs`` may be held: a block still in use keeps its segment of
+        the pool from the card."""
         self.graphs = self.diffs = self.bufs = None
         self.pool = None  # MemPool's destructor frees the pool's memory
 
-    def run(self, p: int) -> torch.Tensor:
+    __del__ = release  # the graphs go before their pool
+
+    def reset(self, damping: float) -> None:
+        """``bufs[0]`` back to the empty basket with the dangling rows
+        (after the previous call's last read of it, on any stream), and the
+        damping tensor set to ``damping``: a fresh call's start."""
+        torch.cuda.current_stream(self.damping.device).wait_event(self.done)
+        ids, scores = self.bufs[0]
+        ids.fill_(SENTINEL)
+        scores.zero_()
+        self.damping.fill_(damping)
+        _set_dangling(self.bufs[0], self.dangling, damping)
+
+    def init_sweep(self) -> None:
+        """The init sweep over both partitions, into ``bufs[0]``."""
+        merge_sweep(
+            None, self.dev_buckets[0] + self.dev_buckets[1], self.damping, self.L,
+            self.algo, out_basket=self.bufs[0], elem_budget=self.elem_budget,
+            hub_sub=self.hub_sub,
+        )
+
+    def sweep(self, src: Baskets, p: int, dst: Baskets) -> tuple:
+        return merge_sweep(
+            src, self.dev_buckets[p], self.damping, self.L, self.algo,
+            compute_diff=self.compute_diff, out_basket=dst,
+            elem_budget=self.elem_budget, hub_sub=self.hub_sub,
+        )
+
+    def run(self, p: int) -> torch.Tensor | None:
         """Partition ``p``'s half-sweep: capture at its first turn, then
-        replay; returns its max diff (a 0-d tensor, the graph's output)."""
+        replay; returns its max diff (a 0-d tensor, the graph's output), or
+        None where none is computed."""
         if self.graphs[p] is None:
             with span("grank.graph_capture"):
                 self._capture(p)
         self.graphs[p].replay()
         replay_counts(self.rises[p])
         current().count("graph_replays")
-        return self.diffs[p]
+        return self.diffs[p] if self.compute_diff else None
+
+    def cut(self, i: int, K: int) -> Baskets:
+        """The top ``K`` of the newest basket after ``i`` half-sweeps, as
+        new tensors; the next call's reset waits for this read."""
+        newest = self.bufs[i % 2]
+        out = keep_top_chunked(newest.ids, newest.scores, K)
+        self.done.record(torch.cuda.current_stream(newest.ids.device))
+        return out
 
     def _capture(self, p: int) -> None:
         src, dst = self.bufs[p], self.bufs[1 - p]
@@ -231,28 +314,56 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
     """The sparse engine on one device.  Its spans: ``grank.upload`` (the
     plans, the damping scalar, the empty baskets and the dangling rows;
     count ``bytes``, what crosses from host to device), ``grank.init_sweep``,
-    the loop's (ops/loop.py) and at each partition's first turn on the card
-    ``grank.graph_capture``.  The final cut is the job's own.
+    the loop's (ops/loop.py) and on the card, at each partition's first
+    turn under a new state, ``grank.graph_capture``.  The final cut is the
+    job's own.
 
     On the card the half-sweeps replay CUDA graphs (``_SweepGraphs``),
-    bitwise the eager loop's baskets, with its counts; on the CPU the loop
-    is eager."""
-    n = graph.num_nodes
-    with span("grank.upload") as upload:
-        plan_L, net, hub_sub = plan_widths(L, algo)
-        plans = [
-            graph.merge_plan(0, L=plan_L, net_width=net),
-            graph.merge_plan(1, L=plan_L, net_width=net),
-        ]
-        dev_buckets = [device_plan(p, dev) for p in plans]
-        damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
+    bitwise the eager loop's baskets, with its counts.  That state is kept
+    on ``graph`` for the next call of the same :func:`_sweep_key`, whose
+    upload is then the reset of the first basket; the job's count
+    ``sweep_graphs_reused`` is 1 where the call found it, 0 where it made
+    it.  A call holds ``graph``'s lock throughout.  On the CPU the loop is
+    eager and keeps nothing."""
+    if dev.type != "cuda":
+        return _eager_run(graph, K, L, iterations, damping, tolerance, elem_budget,
+                          algo, dev)
+    compute_diff = tolerance >= 0
+    key = _sweep_key(dev, L, algo, elem_budget, compute_diff)
+    with graph._sweep_lock:
+        kept, graph._sweep_graphs = graph._sweep_graphs, None
+        reused = kept is not None and kept.key == key
+        current().count("sweep_graphs_reused", int(reused))
+        try:
+            with span("grank.upload") as upload:
+                if not reused:
+                    if kept is not None:
+                        kept.release()
+                    kept = _SweepGraphs(graph, key, L, algo, elem_budget, compute_diff,
+                                        dev)
+                kept.reset(damping)
+                upload.count("bytes", 0 if reused else kept.upload_bytes)
+            with span("grank.init_sweep"):
+                kept.init_sweep()
+            i = run_half_sweeps(kept.run, iterations, tolerance)
+            out = kept.cut(i, K)
+        except BaseException:
+            if kept is not None:
+                kept.release()  # a call that raised, a capture among them, keeps nothing
+            raise
+        graph._sweep_graphs = kept
+    return out, {"iterations_ran": i}
 
-        basket = empty_baskets(n, L, dev)
-        dangling = np.concatenate([plans[0].dangling_rows, plans[1].dangling_rows])
-        _set_dangling(basket, dangling, damping)
+
+def _eager_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, dev):
+    """``_sparse_run``'s eager loop: a basket set made at each half-sweep."""
+    with span("grank.upload") as upload:
+        dev_buckets, dangling, hub_sub = _plans(graph, L, algo, dev)
+        damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
+        basket = _set_dangling(empty_baskets(graph.num_nodes, L, dev), dangling, damping)
         if upload:
-            upload.count("bytes", damping_t.nbytes + 8 * dangling.size + sum(
-                b.rows.nbytes + b.succ.nbytes for part in dev_buckets for b in part))
+            upload.count("bytes", damping_t.nbytes + 8 * dangling.size
+                         + _plan_bytes(dev_buckets))
     with span("grank.init_sweep"):
         basket, _ = merge_sweep(
             None, dev_buckets[0] + dev_buckets[1], damping_t, L, algo,
@@ -261,31 +372,15 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
 
     compute_diff = tolerance >= 0
 
-    def sweep(src, p, dst=None):
-        return merge_sweep(
-            src, dev_buckets[p], damping_t, L, algo, compute_diff=compute_diff,
-            out_basket=dst, elem_budget=elem_budget, hub_sub=hub_sub,
-        )
-
     def step(p):
         nonlocal basket
-        if graphs is not None:
-            d = graphs.run(p)
-        else:
-            basket, d = sweep(basket, p)
+        basket, d = merge_sweep(
+            basket, dev_buckets[p], damping_t, L, algo, compute_diff=compute_diff,
+            elem_budget=elem_budget, hub_sub=hub_sub,
+        )
         return d if compute_diff else None
 
-    graphs = None
-    if dev.type == "cuda" and iterations > 0:
-        graphs = _SweepGraphs(basket, sweep)
-    try:
-        i = run_half_sweeps(step, iterations, tolerance)
-        if graphs is not None:
-            basket = graphs.bufs[i % 2]
-    finally:
-        if graphs is not None:
-            graphs.release()
-
+    i = run_half_sweeps(step, iterations, tolerance)
     return keep_top_chunked(basket.ids, basket.scores, K), {"iterations_ran": i}
 
 

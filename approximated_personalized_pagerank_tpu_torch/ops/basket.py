@@ -125,12 +125,15 @@ def _top_order_key(scores: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """int64 keys, distinct within a row, whose descending order is
     ``jax.lax.top_k``'s: descending score, equal scores by ascending column,
     dead slots last.  The high half maps the f32 bits order-preservingly to
-    a signed int; the low half is ~column."""
-    bits = scores.contiguous().view(torch.int32).to(torch.int64)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    col = torch.arange(scores.shape[-1], dtype=torch.int64, device=scores.device)
-    key = (ordered << 32) | (0xFFFFFFFF - col)
-    return torch.where(live, key, torch.full_like(key, _DEAD_KEY))
+    a signed int; the low half is ~column.  Built in place, so that its
+    peak is two int64 copies of ``scores``: a final cut then fits under
+    the merge's peak beside a kept basket pair (models/grank.py)."""
+    key = scores.contiguous().view(torch.int32).to(torch.int64)
+    torch.where(key < 0, key ^ 0x7FFFFFFF, key, out=key)
+    key <<= 32
+    key |= 0xFFFFFFFF - torch.arange(scores.shape[-1], dtype=torch.int64,
+                                     device=scores.device)
+    return torch.where(live, key, torch.full_like(key, _DEAD_KEY), out=key)
 
 
 def keep_top(ids: torch.Tensor, scores: torch.Tensor, k: int) -> Baskets:
@@ -145,6 +148,7 @@ def keep_top(ids: torch.Tensor, scores: torch.Tensor, k: int) -> Baskets:
     key = _top_order_key(scores, ids >= 0)
     kk = min(k, w)
     top_key, top_pos = torch.topk(key, kk, dim=-1, largest=True, sorted=True)
+    del key
     out_ids = torch.gather(ids, -1, top_pos)
     out_scores = torch.gather(scores, -1, top_pos)
     live = top_key != _DEAD_KEY

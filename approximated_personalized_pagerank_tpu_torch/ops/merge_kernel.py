@@ -429,6 +429,8 @@ def launch_count() -> int:
 # their live count m (the totals at or above the cut, which the network
 # moves), in LIVE_BUCKETS.
 _tie_counts: Optional[dict] = None
+# Which counters a launch writes into: one more at each count_tied_rows.
+_tie_epoch = 0
 # The m histogram's buckets.
 LIVE_BUCKETS = ("m<=128", "m<=512", "m<=2048", "m>2048")
 
@@ -437,8 +439,17 @@ def count_tied_rows(on: bool = True) -> None:
     """Start counting the kernel's tied rows from zero (``on``), or stop.
     Off by default: on, each launch passes the kernel its counters, and
     each tied row adds one atomically."""
-    global _tie_counts
+    global _tie_counts, _tie_epoch
     _tie_counts = {} if on else None
+    _tie_epoch += 1
+
+
+def tie_counting() -> Optional[int]:
+    """None while tied rows are not counted, else a number that changes
+    at each :func:`count_tied_rows`.  A CUDA graph captured under one
+    value writes into that value's counters (:func:`capture_counts`), so it
+    may be replayed only while the value holds."""
+    return None if _tie_counts is None else _tie_epoch
 
 
 def tied_row_counts() -> dict:

@@ -6,7 +6,9 @@ rows) must be those of the eager loop, which this file writes out with
 ``merge_sweep`` (``_eager``).
 On the CPU the loop stays eager: the CPU tests hold ``_eager`` to the
 program there, so the card's tests hold the graphs to a loop known to be
-the program's.
+the program's.  The captured state is kept on the ``Graph`` between calls
+of one key (``grank._sweep_key``); the card's tests hold each call on a
+kept state to a fresh call on a fresh ``Graph``.
 
 This file imports neither JAX nor the JAX package; its ``gpu`` tests run on
 a card's machine without the suite's ``conftest.py``::
@@ -15,6 +17,8 @@ a card's machine without the suite's ``conftest.py``::
 """
 
 import collections
+import pickle
+import threading
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ import torch
 
 import approximated_personalized_pagerank_tpu_torch as pt
 from approximated_personalized_pagerank_tpu_torch.models import grank as grank_mod
+from approximated_personalized_pagerank_tpu_torch.ops import basket as basket_ops
 from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel
 from approximated_personalized_pagerank_tpu_torch.ops.basket import (
     empty_baskets,
@@ -147,6 +152,7 @@ def eat():
 @pytest.mark.parametrize("iterations,tolerance", CASES)
 def test_graph_replays_are_the_eager_loop_bitwise_on_the_card(eat, iterations, tolerance):
     _card()
+    eat.release_device_state()  # so this call captures
     tol = _tolerance(eat, 50, 100, tolerance, "cuda")
     want, ran, _, launches = _eager(eat, 50, 100, iterations, tol, "cuda")
     got, got_ran, spans = _program(eat, 50, 100, iterations, tol, "cuda")
@@ -211,3 +217,213 @@ def test_a_capture_counts_nothing_and_each_replay_counts_it(tied):
         merge_kernel.count_tied_rows(False)
         gather.clear()
         gather.update(saved)
+
+
+# ---------------------------------------------------------------- kept state
+KEY = dict(dev=torch.device("cuda", 0), L=100, algo="kernel", elem_budget=1 << 22,
+           compute_diff=True)
+
+
+@pytest.mark.parametrize("part,other", [
+    ("dev", torch.device("cuda", 1)), ("dev", torch.device("cpu")), ("L", 50),
+    ("algo", "sort"), ("algo", "kernel:512"), ("elem_budget", 1 << 20),
+    ("compute_diff", False)])
+def test_the_sweep_key_tells_apart_each_of_its_parts(part, other):
+    assert grank_mod._sweep_key(**KEY) == grank_mod._sweep_key(**KEY)
+    assert grank_mod._sweep_key(**{**KEY, part: other}) != grank_mod._sweep_key(**KEY)
+
+
+def test_the_sweep_key_changes_with_the_tied_row_counters():
+    """A graph captured while tied rows are counted writes into that
+    count's counters, so each count_tied_rows(True) starts another key."""
+    off = grank_mod._sweep_key(**KEY)
+    try:
+        merge_kernel.count_tied_rows(True)
+        first = grank_mod._sweep_key(**KEY)
+        merge_kernel.count_tied_rows(True)
+        second = grank_mod._sweep_key(**KEY)
+    finally:
+        merge_kernel.count_tied_rows(False)
+    assert len({off, first, second}) == 3
+    assert grank_mod._sweep_key(**KEY) == off
+
+
+def test_release_device_state_without_a_card_is_a_no_op(small):
+    small.release_device_state()
+    _program(small, 5, 10, 6, 1e-4, "cpu")
+    assert small._sweep_graphs is None
+    small.release_device_state()
+    assert small._sweep_graphs is None
+
+
+@pytest.mark.parametrize("algo", ["sort", "kernel"])
+def test_two_cpu_calls_on_one_graph_equal_fresh_calls(algo):
+    graph = powerlaw_graph(150, 1000, seed=3)
+    calls = []
+    for _ in range(2):
+        profiling.clear()
+        calls.append(_program(graph, 5, 10, 6, 1e-4, "cpu", algo))
+    fresh = _program(powerlaw_graph(150, 1000, seed=3), 5, 10, 6, 1e-4, "cpu", algo)
+    for got, ran, spans in calls:
+        assert _same_bits(got, fresh[0]) and ran == fresh[1]
+        (job,) = _by_name(spans, "grank.job")
+        assert "sweep_graphs_reused" not in job.counts  # eager: nothing kept
+
+
+def test_a_pickled_graph_runs_as_its_original(small):
+    copy = pickle.loads(pickle.dumps(small))
+    assert copy._sweep_graphs is None
+    got, ran, _ = _program(copy, 5, 10, 6, 1e-4, "cpu")
+    want, want_ran, _ = _program(small, 5, 10, 6, 1e-4, "cpu")
+    assert _same_bits(got, want) and ran == want_ran
+
+
+def _order_key_formula(scores, live):
+    """``basket._top_order_key`` as it was before it was built in place,
+    kept here only, as the reference."""
+    bits = scores.contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    col = torch.arange(scores.shape[-1], dtype=torch.int64, device=scores.device)
+    key = (ordered << 32) | (0xFFFFFFFF - col)
+    return torch.where(live, key, torch.full_like(key, basket_ops._DEAD_KEY))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_the_final_cuts_key_built_in_place_is_its_formula_bit_for_bit(transposed):
+    """The final cut runs beside both kept baskets, so its key is built in
+    place; every float32 bit pattern (negatives, NaNs, infinities, -0.0)
+    and dead slot keep the formula's key, and the scores are left as they
+    were."""
+    g = torch.Generator().manual_seed(5)
+    bits = torch.randint(-2**31, 2**31, (257, 130), dtype=torch.int64, generator=g)
+    bits[0, :6] = torch.tensor([0, -2**31, 0x7F800000, -8388608, 0x7FC00000, 1])
+    scores = bits.to(torch.int32).view(torch.float32)
+    live = torch.rand(257, 130, generator=g) > 0.25
+    if transposed:
+        scores, live = scores.t(), live.t()
+    assert torch.equal(basket_ops._top_order_key(scores, live),
+                       _order_key_formula(scores, live))
+    assert torch.equal(scores.contiguous().view(torch.int32),
+                       bits.to(torch.int32).t().contiguous() if transposed
+                       else bits.to(torch.int32))  # the input is left as it was
+
+
+def _call(graph, L=100, damping=DAMPING, tolerance=1e-4, iterations=30):
+    """One Eat call on the card, recorded: baskets, half-sweeps run and the
+    job's ``sweep_graphs_reused``."""
+    profiling.clear()
+    with profiling.record():
+        out, info = pt.grank_baskets(graph, 50, L, iterations, damping, tolerance,
+                                     engine="sparse", return_info=True, device="cuda")
+    (job,) = _by_name(profiling.recorded(), "grank.job")
+    return out, info["iterations_ran"], job.counts["sweep_graphs_reused"]
+
+
+def _fresh(**kw):
+    """The same call on a fresh ``Graph``, whose state goes with it."""
+    graph = pt.load_eat_graph()
+    out, ran, reused = _call(graph, **kw)
+    graph.release_device_state()
+    assert reused == 0
+    return out, ran
+
+
+def _copy(b):
+    return pt.Baskets(b.ids.clone(), b.scores.clone())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("between", [
+    {}, {"L": 64}, {"damping": 0.6}, {"tolerance": -1.0}],
+    ids=["nothing", "another_L", "another_damping", "negative_tolerance"])
+def test_calls_on_a_kept_state_are_fresh_calls_bitwise(between):
+    """Two calls on one Eat ``Graph``, with a call of other arguments
+    between them: each is bitwise a fresh call on a fresh ``Graph`` with
+    the same half-sweeps run.  Another L or a negative tolerance is
+    another key, so it captures again and so does the call after it;
+    another damping is the same key, written into the captured tensor."""
+    _card()
+    graph = pt.load_eat_graph()
+    recapture = "L" in between or "tolerance" in between
+    want, want_ran = _fresh()
+    mid_want, mid_ran = _fresh(**between)
+    first, ran, reused = _call(graph)
+    assert reused == 0 and ran == want_ran and _same_bits(first, want)
+    mid, ran, reused = _call(graph, **between)
+    assert reused == int(not recapture) and ran == mid_ran and _same_bits(mid, mid_want)
+    last, ran, reused = _call(graph)
+    assert reused == int(not recapture) and ran == want_ran and _same_bits(last, want)
+    graph.release_device_state()
+
+
+@pytest.mark.gpu
+def test_a_later_call_leaves_the_results_a_user_holds():
+    _card()
+    graph = pt.load_eat_graph()
+    first = _call(graph)[0]
+    held = _copy(first)
+    second, _, reused = _call(graph, damping=0.6)
+    assert reused == 1 and not _same_bits(second, first)
+    assert _same_bits(first, held)
+    graph.release_device_state()
+
+
+@pytest.mark.gpu
+def test_release_device_state_frees_the_state_and_the_next_call_captures():
+    _card()
+    graph = pt.load_eat_graph()
+    want = _call(graph)[0]
+    assert graph._sweep_graphs is not None
+    reserved = torch.cuda.memory_reserved()
+    graph.release_device_state()
+    assert graph._sweep_graphs is None
+    assert torch.cuda.memory_reserved() < reserved  # the pool went back to the card
+    got = [_call(graph) for _ in range(2)]
+    assert [reused for _, _, reused in got] == [0, 1]
+    assert all(_same_bits(out, want) for out, _, _ in got)
+    graph.release_device_state()
+
+
+@pytest.mark.gpu
+def test_a_capture_that_raises_leaves_no_state(monkeypatch):
+    _card()
+    graph = pt.load_eat_graph()
+    want = _call(graph)[0]
+    graph.release_device_state()
+
+    def sweep(self, src, p, dst):
+        raise RuntimeError("made to fail inside the capture")
+
+    with monkeypatch.context() as m:
+        m.setattr(grank_mod._SweepGraphs, "sweep", sweep)
+        with pytest.raises(RuntimeError, match="made to fail"):
+            _call(graph)
+    assert graph._sweep_graphs is None
+    got, _, reused = _call(graph)
+    assert reused == 0 and _same_bits(got, want)
+    graph.release_device_state()
+
+
+@pytest.mark.gpu
+def test_two_threads_calling_on_one_graph_get_fresh_calls_results():
+    _card()
+    graph = pt.load_eat_graph()
+    want = {d: _fresh(damping=d)[0] for d in (0.85, 0.6)}
+    got, errors = {}, []
+
+    def worker(d):
+        try:
+            got[d] = [_copy(pt.grank_baskets(graph, 50, 100, 30, d, 1e-4, engine="sparse",
+                                             device="cuda")) for _ in range(3)]
+            torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(d,)) for d in want]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert all(_same_bits(b, want[d]) for d, bs in got.items() for b in bs)
+    graph.release_device_state()
