@@ -39,10 +39,12 @@ from ..ops.dense import MC_DENSE_MAX_NODES, dense_mc_combine, use_dense_engine
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
     device_plan,
+    merge_route,
     merge_sweep,
     plan_widths,
     resolve_merge_algo,
 )
+from ..ops.merge_kernel import launch_count
 from ..ops.walk import walk_rows
 from ..parallel.mesh import mesh_for
 from ..parallel.ring import ring_mc_combine
@@ -103,7 +105,8 @@ def mccompletepathv2_baskets(
     With recording on (utils/profiling.py) the call is the span ``mc.job``,
     with ``mc.walks`` and then ``mc.combine`` (count ``passes``: the
     engine's combine, the final cut to K included) inside it on every
-    engine.
+    engine; on the sparse engine ``mc.combine`` holds a ``mc.combine_pass``
+    a pass and then ``mc.final_cut`` (``_sparse_mc_combine``).
     """
     with span("mc.job"):
         return _mc_run(graph, K, L, iterations, damping, seed, combine_passes,
@@ -153,7 +156,12 @@ def _mc_run(graph, K, L, iterations, damping, seed, combine_passes, elem_budget,
 def _sparse_mc_combine(graph, walk, K, L, damping, combine_passes, elem_budget, algo,
                        dev):
     """The sparse engine's combine: ``combine_passes`` merge sweeps over every
-    node (``mode="mc_combine"``), then the cut to K."""
+    node (``mode="mc_combine"``), then the cut to K.  With recording on each
+    pass is the span ``mc.combine_pass`` (counts ``buckets``, the rows each
+    route merges, ``hub_rows`` / ``gather_rows`` / ``sort_rows``
+    (ops/merge.py::merge_route; together the nodes with successors), and
+    ``merge_launches``, the merge kernel's launches) and the cut
+    ``mc.final_cut``."""
     plan_L, net, hub_sub = plan_widths(L, algo)
     buckets = device_plan(graph.merge_plan(None, L=plan_L, net_width=net), dev)
     damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
@@ -161,11 +169,24 @@ def _sparse_mc_combine(graph, walk, K, L, damping, combine_passes, elem_budget, 
     # are in no bucket and keep their walk basket {v: 1.0}
     # (mccompletepathv2.h:213-214: factor 1, no successor contributions)
     for _ in range(combine_passes):
-        walk, _ = merge_sweep(
-            walk, buckets, damping_t, L, algo, mode="mc_combine",
-            elem_budget=elem_budget, hub_sub=hub_sub,
-        )
-    return keep_top_chunked(walk.ids, walk.scores, K)
+        with span("mc.combine_pass") as s:
+            if s:
+                launches = launch_count()
+                s.count("buckets", len(buckets))
+                for route in ("hub", "gather", "sort"):
+                    s.count(f"{route}_rows", 0)
+                for b in buckets:
+                    d = b.succ.shape[1]
+                    s.count(f"{merge_route(d, walk.width, algo, hub_sub)}_rows",
+                            b.rows.shape[0])
+            walk, _ = merge_sweep(
+                walk, buckets, damping_t, L, algo, mode="mc_combine",
+                elem_budget=elem_budget, hub_sub=hub_sub,
+            )
+            if s:
+                s.count("merge_launches", launch_count() - launches)
+    with span("mc.final_cut"):
+        return keep_top_chunked(walk.ids, walk.scores, K)
 
 
 def mccompletepathv2_multi_baskets(

@@ -285,6 +285,17 @@ def _hub_merge_chunk(
     return Baskets(out.ids, out.scores * post_scale[:, None])
 
 
+def merge_route(d: int, width: int, algo: str, hub_sub: int | None) -> str:
+    """How :func:`merge_bucket` merges the rows of a bucket of cap ``d`` that
+    read baskets ``width`` wide: ``"hub"`` (the hierarchical hub merge,
+    caps above ``hub_sub``), ``"gather"`` (the kernel's gather entry) or
+    ``"sort"`` (the sort pipeline, rows too narrow or too wide for the
+    kernel, or the sort pipeline named)."""
+    if hub_sub is not None and d > hub_sub:
+        return "hub"
+    return "gather" if _takes_kernel(algo, 1 + d * width) else "sort"
+
+
 def merge_bucket(
     basket: Baskets | None,
     rows: torch.Tensor,
@@ -306,9 +317,9 @@ def merge_bucket(
     chunks of ``elem_budget // (2L)`` rows.
     """
     c, d = succ.shape
-    hub = hub_sub is not None and d > hub_sub and basket is not None
+    route = "init" if basket is None else merge_route(d, basket.width, algo, hub_sub)
+    hub, gather = route == "hub", route == "gather"
     width = 1 + (d if basket is None else d * basket.width)
-    gather = not hub and basket is not None and _takes_kernel(algo, width)
     per_row = 2 * L if gather else width
     chunk = int(max(1, min(c, elem_budget // max(per_row, 1))))
     parts_i, parts_s, parts_d = [], [], []

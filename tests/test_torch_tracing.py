@@ -21,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import approximated_personalized_pagerank_tpu_torch as pt
 from approximated_personalized_pagerank_tpu_torch.models import grank as grank_mod
+from approximated_personalized_pagerank_tpu_torch.ops import merge as merge_mod
 from approximated_personalized_pagerank_tpu_torch.ops import merge_kernel
 from approximated_personalized_pagerank_tpu_torch.ops import walk as tw
 from approximated_personalized_pagerank_tpu_torch.utils import profiling
@@ -156,9 +157,15 @@ def test_every_engine_has_the_root_span_and_mc_its_parts(graph):
         # on the CPU no merge kernel launches and no graph replays
         assert all(s.counts == {"merge_launches": 0, "graph_replays": 0} for s in sweeps)
     for job, *parts in jobs[2:]:
-        assert [(s.name, s.parent) for s in (job, *parts)] == [
+        top = [s for s in parts if s.parent == job.id]
+        assert [(s.name, s.parent) for s in (job, *top)] == [
             ("mc.job", None), ("mc.walks", job.id), ("mc.combine", job.id)]
-        assert parts[1].counts == {"passes": 2}
+        assert top[1].counts == {"passes": 2}
+    # only the sparse engine's combine opens its passes and its cut
+    inner = [[(s.name, s.parent) for s in parts if s.parent != job.id]
+             for job, *parts in jobs[2:]]
+    comb = [s for s in jobs[2] if s.name == "mc.combine"][0]
+    assert inner == [[("mc.combine_pass", comb.id)] * 2 + [("mc.final_cut", comb.id)], [], []]
     # each walk's alive checks are children of its mc.walks
     waits = _by_name(profiling.recorded(), "mc.alive_wait")
     assert waits and {w.parent for w in waits} == {j[1].id for j in jobs[2:]}
@@ -188,6 +195,42 @@ def test_dense_mc_spans_and_counts_follow_the_plan(n, R, chunks):
     assert chunks <= steps <= chunks * plan_macro
     assert steps <= len(waits) <= steps + chunks
     assert info["walk_steps"] > 0
+
+
+@pytest.mark.parametrize("algo", ["kernel", "sort"])
+def test_sparse_mc_combine_passes_count_their_rows(algo):
+    """The sparse engine's ``mc.combine`` holds one ``mc.combine_pass`` a
+    pass and then ``mc.final_cut``; each pass counts the plan's buckets and
+    the rows of each route (ops/merge.py::merge_route), which together are
+    the nodes with successors.  At L=100 the kernel pipeline's plan has hub
+    rows (caps above 81), gather rows and rows too narrow for the kernel
+    (cap 2 or less: 201 candidates);
+    the sort pipeline merges every row by sort.  On the CPU the kernel's
+    plain versions count no launch.  The dense engine opens no pass."""
+    graph = powerlaw_graph(400, 5000, seed=3)
+    with profiling.record():
+        pt.mccompletepathv2_baskets(graph, K, 100, 20, DAMPING, seed=1, engine="sparse",
+                                    merge_algo=algo, device="cpu")
+        pt.mccompletepathv2_baskets(graph, K, 100, 20, DAMPING, seed=1, engine="dense",
+                                    device="cpu")
+    spans = profiling.recorded()
+    combs = _by_name(spans, "mc.combine")
+    assert len(combs) == 2
+    passes = _by_name(spans, "mc.combine_pass")
+    (cut,) = _by_name(spans, "mc.final_cut")
+    assert [s.parent for s in passes] + [cut.parent] == [combs[0].id] * 3
+    assert passes[0].end_ns <= passes[1].start_ns <= passes[1].end_ns <= cut.start_ns
+    plan_L, net, _ = merge_mod.plan_widths(100, algo)
+    buckets = graph.merge_plan(None, L=plan_L, net_width=net).buckets
+    rows = {"hub_rows", "gather_rows", "sort_rows"}
+    for s in passes:
+        assert set(s.counts) == rows | {"buckets", "merge_launches"}
+        assert s.counts["buckets"] == len(buckets)
+        assert sum(s.counts[k] for k in rows) == int((graph.out_degree > 0).sum())
+        assert s.counts["merge_launches"] == 0
+    assert passes[0].counts == passes[1].counts
+    routes = [passes[0].counts[k] for k in ("hub_rows", "gather_rows", "sort_rows")]
+    assert (all(routes) if algo == "kernel" else routes[:2] == [0, 0])
 
 
 def test_spans_and_profiler_events_share_a_clock(graph):
