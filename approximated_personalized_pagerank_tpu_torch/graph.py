@@ -439,9 +439,10 @@ class Graph:
 
     def release_device_state(self) -> None:
         """Free what sparse GRank keeps on the card between calls: its
-        captured half-sweep graphs, their two baskets, their memory pool and
-        the device plans.  The next call on the card captures again.  A
-        no-op where nothing is kept; waits for a call in another thread."""
+        captured init-sweep and half-sweep graphs, their two baskets, their
+        memory pool and the device plans.  The next call on the card
+        captures again.  A no-op where nothing is kept; waits for a call in
+        another thread."""
         with self._sweep_lock:
             kept, self._sweep_graphs = self._sweep_graphs, None
             if kept is not None:

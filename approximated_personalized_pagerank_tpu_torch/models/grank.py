@@ -16,9 +16,10 @@ Reference: ``ppr::grank`` (include/grank.h:42-150).  Semantics preserved:
 Baskets are ``[N, L]`` id/score tensors; each half-sweep merges the active
 partition's degree buckets (ops/merge.py).  The loop, its maxDiff slots and
 its spans live once in ops/loop.py (``run_half_sweeps``); the engines supply
-its half-sweep.  The sparse engine is this module's: on the card each
-partition's half-sweep is one CUDA graph, captured at its first turn and
-replayed after, kept on the ``Graph`` for later calls (``_SweepGraphs``).
+its half-sweep.  The sparse engine is this module's: on the card the init
+sweep and each partition's half-sweep are one CUDA graph each, captured at
+their first turn and replayed after, kept on the ``Graph`` for later calls
+(``_SweepGraphs``).
 Graphs up to 16,384 nodes take the dense engine by default (ops/dense.py);
 with a ``mesh`` the run is the ring-sharded one (parallel/ring.py).
 """
@@ -26,7 +27,7 @@ with a ``mesh`` the run is the ring-sharded one (parallel/ring.py).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Hashable
+from typing import Callable, Dict, Hashable
 
 import numpy as np
 import torch
@@ -187,27 +188,29 @@ class _SweepGraphs:
     """The sparse engine's state on the card, kept on its ``Graph``
     (``Graph._sweep_graphs``) between calls of one :func:`_sweep_key`: the
     device plans, the dangling rows, the damping tensor the graphs read,
-    two static baskets, and each partition's half-sweep as a CUDA graph.
+    two static baskets, and three CUDA graphs: the init sweep and each
+    partition's half-sweep.
 
-    Two static baskets take turns: partition 0's graph reads ``bufs[0]``
-    (the init sweep's basket) and writes ``bufs[1]``, partition 1's reads
-    ``bufs[1]`` and writes ``bufs[0]``, so after ``i`` half-sweeps the
-    newest basket is ``bufs[i % 2]``.  A graph's body is the eager
-    half-sweep: the source copied into the destination (the eager loop's
-    clone), then :meth:`sweep`, whose max diff tensor (the second of what
-    it returns) is the graph's static output.  Each graph is captured at
-    its partition's first half-sweep under this state (span
-    ``grank.graph_capture``) and replayed then and at every later turn of
-    its partition, in this call and the later ones.  Both capture on one
-    side stream into one memory pool, so the second capture reuses the
-    blocks the first one's temporaries freed.  A replay adds to the merge
-    kernel's counters (launches, tied rows) what its capture noted, so
-    they count what the card ran (``merge_kernel.capture_counts``), and
-    adds 1 to the open span's ``graph_replays`` (the loop's
+    Two static baskets take turns: the init sweep writes ``bufs[0]``,
+    partition 0's graph reads ``bufs[0]`` and writes ``bufs[1]``, partition
+    1's reads ``bufs[1]`` and writes ``bufs[0]``, so after ``i`` half-sweeps
+    the newest basket is ``bufs[i % 2]``.  A graph's body is the eager
+    sweep: for the init sweep :meth:`init_merge`; for a half-sweep the
+    source copied into the destination (the eager loop's clone), then
+    :meth:`sweep`, whose max diff tensor (the second of what it returns) is
+    the graph's static output.  Each graph is captured at its first turn
+    under this state (span ``grank.graph_capture``) and replayed then and at
+    every later turn, in this call and the later ones.  All three capture
+    on one side stream into one memory pool, the init sweep first, so each
+    later capture reuses the blocks the earlier ones' temporaries freed.  A
+    replay adds to the merge kernel's counters (launches, tied rows) what
+    its capture noted, so they count what the card ran
+    (``merge_kernel.capture_counts``), and adds 1 to the open span's
+    ``graph_replays`` (``grank.init_sweep``, or the loop's
     ``grank.half_sweep``).
 
-    Every call starts from :meth:`reset` and runs every half-sweep: graphs
-    are kept, results never.  :meth:`release` (``Graph.release_device_state``,
+    Every call starts from :meth:`reset` and runs every sweep: graphs are
+    kept, results never.  :meth:`release` (``Graph.release_device_state``,
     a call of another key, a call that raised, or the collection of the
     ``Graph``) drops the graphs, their outputs and the baskets, then the
     pool, whose memory goes back to the card; a pool is not reused for new
@@ -226,9 +229,8 @@ class _SweepGraphs:
         self.upload_bytes = (self.damping.nbytes + self.dangling.nbytes
                              + _plan_bytes(self.dev_buckets))
         n = graph.num_nodes
-        self.graphs = [None, None]
+        self.graphs, self.rises = {}, {}  # by "init", 0, 1
         self.diffs = [None, None]
-        self.rises = [None, None]
         self.bufs = (empty_baskets(n, L, dev), empty_baskets(n, L, dev))
         with torch.cuda.device(dev):
             self.pool = torch.cuda.MemPool()
@@ -256,7 +258,11 @@ class _SweepGraphs:
         _set_dangling(self.bufs[0], self.dangling, damping)
 
     def init_sweep(self) -> None:
-        """The init sweep over both partitions, into ``bufs[0]``."""
+        """The init sweep into ``bufs[0]``: its graph's replay."""
+        self._replay("init", self.init_merge)
+
+    def init_merge(self) -> None:
+        """The init sweep's body: both partitions merged into ``bufs[0]``."""
         merge_sweep(
             None, self.dev_buckets[0] + self.dev_buckets[1], self.damping, self.L,
             self.algo, out_basket=self.bufs[0], elem_budget=self.elem_budget,
@@ -271,15 +277,10 @@ class _SweepGraphs:
         )
 
     def run(self, p: int) -> torch.Tensor | None:
-        """Partition ``p``'s half-sweep: capture at its first turn, then
-        replay; returns its max diff (a 0-d tensor, the graph's output), or
-        None where none is computed."""
-        if self.graphs[p] is None:
-            with span("grank.graph_capture"):
-                self._capture(p)
-        self.graphs[p].replay()
-        replay_counts(self.rises[p])
-        current().count("graph_replays")
+        """Partition ``p``'s half-sweep: its graph's replay; returns its max
+        diff (a 0-d tensor, the graph's output), or None where none is
+        computed."""
+        self._replay(p, lambda: self._half_sweep(p))
         return self.diffs[p] if self.compute_diff else None
 
     def cut(self, i: int, K: int) -> Baskets:
@@ -290,41 +291,54 @@ class _SweepGraphs:
         self.done.record(torch.cuda.current_stream(newest.ids.device))
         return out
 
-    def _capture(self, p: int) -> None:
+    def _half_sweep(self, p: int) -> None:
         src, dst = self.bufs[p], self.bufs[1 - p]
+        dst.ids.copy_(src.ids)
+        dst.scores.copy_(src.scores)
+        _, self.diffs[p] = self.sweep(src, p, dst)
+
+    def _replay(self, name: str | int, body: Callable[[], None]) -> None:
+        """Replay graph ``name``, captured from ``body`` at its first turn."""
+        if name not in self.graphs:
+            with span("grank.graph_capture"):
+                self._capture(name, body)
+        self.graphs[name].replay()
+        replay_counts(self.rises[name])
+        current().count("graph_replays")
+
+    def _capture(self, name: str | int, body: Callable[[], None]) -> None:
+        dev = self.damping.device
         graph = torch.cuda.CUDAGraph()
-        with capture_counts(src.ids.device) as rise:
-            self.stream.wait_stream(torch.cuda.current_stream(src.ids.device))
+        with capture_counts(dev) as rise:
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self.stream):
                 graph.capture_begin(pool=self.pool.id)
                 try:
-                    dst.ids.copy_(src.ids)
-                    dst.scores.copy_(src.scores)
-                    _, self.diffs[p] = self.sweep(src, p, dst)
+                    body()
                 except BaseException:
                     with contextlib.suppress(RuntimeError):
                         graph.capture_end()
                     raise
                 graph.capture_end()
-        self.graphs[p] = graph
-        self.rises[p] = rise
+        self.graphs[name], self.rises[name] = graph, rise
 
 
 def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, dev):
     """The sparse engine on one device.  Its spans: ``grank.upload`` (the
     plans, the damping scalar, the empty baskets and the dangling rows;
-    count ``bytes``, what crosses from host to device), ``grank.init_sweep``,
-    the loop's (ops/loop.py) and on the card, at each partition's first
-    turn under a new state, ``grank.graph_capture``.  The final cut is the
-    job's own.
+    count ``bytes``, what crosses from host to device), ``grank.init_sweep``
+    (count ``graph_replays``, 1 where it replayed a graph, 0 where eager),
+    the loop's (ops/loop.py) and on the card, inside the init sweep and
+    each partition's first half-sweep under a new state,
+    ``grank.graph_capture``.  The final cut is the job's own.
 
-    On the card the half-sweeps replay CUDA graphs (``_SweepGraphs``),
-    bitwise the eager loop's baskets, with its counts.  That state is kept
-    on ``graph`` for the next call of the same :func:`_sweep_key`, whose
-    upload is then the reset of the first basket; the job's count
-    ``sweep_graphs_reused`` is 1 where the call found it, 0 where it made
-    it.  A call holds ``graph``'s lock throughout.  On the CPU the loop is
-    eager and keeps nothing."""
+    On the card the init sweep and the half-sweeps replay CUDA graphs
+    (``_SweepGraphs``), bitwise the eager loop's baskets, with its counts.
+    That state is kept on ``graph`` for the next call of the same
+    :func:`_sweep_key`, whose upload is then the reset of the first basket;
+    the job's count ``sweep_graphs_reused`` is 1 where the call found it, 0
+    where it made it.  A call holds ``graph``'s lock throughout.  On the CPU
+    the loop is eager and keeps nothing."""
     if dev.type != "cuda":
         return _eager_run(graph, K, L, iterations, damping, tolerance, elem_budget,
                           algo, dev)
@@ -343,7 +357,8 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
                                         dev)
                 kept.reset(damping)
                 upload.count("bytes", 0 if reused else kept.upload_bytes)
-            with span("grank.init_sweep"):
+            with span("grank.init_sweep") as init:
+                init.count("graph_replays", 0)
                 kept.init_sweep()
             i = run_half_sweeps(kept.run, iterations, tolerance)
             out = kept.cut(i, K)
@@ -364,7 +379,8 @@ def _eager_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, d
         if upload:
             upload.count("bytes", damping_t.nbytes + 8 * dangling.size
                          + _plan_bytes(dev_buckets))
-    with span("grank.init_sweep"):
+    with span("grank.init_sweep") as init:
+        init.count("graph_replays", 0)
         basket, _ = merge_sweep(
             None, dev_buckets[0] + dev_buckets[1], damping_t, L, algo,
             out_basket=basket, elem_budget=elem_budget, hub_sub=hub_sub,

@@ -23,8 +23,9 @@ The program's spans (PERF.md section 3 names the metric each one feeds):
 engine, the main loop's (ops/loop.py) ``grank.half_sweep`` (counts
 ``merge_launches`` and ``graph_replays``) with its child ``grank.diff_wait``;
 on the sparse engine without a mesh also ``grank.upload`` (count
-``bytes``, host to device), ``grank.init_sweep`` and, on the card at a
-partition's first turn, ``grank.graph_capture`` inside the half-sweep;
+``bytes``, host to device), ``grank.init_sweep`` (count ``graph_replays``)
+and, on the card at the init sweep's or a partition's first turn,
+``grank.graph_capture`` inside that sweep;
 ``mc.job`` (every engine) and in it, on every engine, ``mc.walks``
 (counts ``chunks``, ``walk_kernel_chunks`` and ``macro_steps``: the
 walks' source chunks, those the walk cohort kernel walked, and the macro

@@ -1,9 +1,10 @@
-"""GRank's half-sweeps as CUDA graphs (``models/grank.py::_SweepGraphs``).
+"""GRank's init sweep and half-sweeps as CUDA graphs
+(``models/grank.py::_SweepGraphs``).
 
-On the card each partition's half-sweep is captured once and replayed; the
-baskets, the half-sweeps run and the kernel's counters (launches, tied
-rows) must be those of the eager loop, which this file writes out with
-``merge_sweep`` (``_eager``).
+On the card the init sweep and each partition's half-sweep are captured
+once and replayed; the baskets, the half-sweeps run and the kernel's
+counters (launches, tied rows) must be those of the eager loop, which this
+file writes out with ``merge_sweep`` (``_init``, ``_eager``).
 On the CPU the loop stays eager: the CPU tests hold ``_eager`` to the
 program there, so the card's tests hold the graphs to a loop known to be
 the program's.  The captured state is kept on the ``Graph`` between calls
@@ -55,22 +56,32 @@ def empty_buffer():
     profiling.clear()
 
 
-def _eager(graph, K, L, iterations, tolerance, device, algo=None):
-    """The sparse loop of ``_sparse_run`` written out eagerly: returns the
-    ``[N, K]`` baskets, the half-sweeps run, each half-sweep's max diff and
-    each one's rise of the kernel's launch counters."""
+def _init(graph, L, device, algo=None, damping=DAMPING):
+    """The init sweep of ``_sparse_run`` written out eagerly: returns the
+    ``[N, L]`` basket it leaves, its rise of the kernel's launch counters,
+    and what the half-sweeps read (buckets, damping tensor, merge algo,
+    ``hub_sub``)."""
     dev = torch.device(device)
     algo = resolve_merge_algo(algo, dev)
     net = net_max_width(algo)
     plans = [graph.merge_plan(p, L=L if net else None, net_width=net) for p in (0, 1)]
     hub_sub = max((net - 1) // L, 1) if net else None
     buckets = [device_plan(p, dev) for p in plans]
-    damping = torch.tensor(DAMPING, dtype=torch.float32, device=dev)
+    damping_t = torch.tensor(damping, dtype=torch.float32, device=dev)
     basket = empty_baskets(graph.num_nodes, L, dev)
     grank_mod._set_dangling(
-        basket, np.concatenate([p.dangling_rows for p in plans]), DAMPING)
-    basket, _ = merge_sweep(None, buckets[0] + buckets[1], damping, L, algo,
+        basket, np.concatenate([p.dangling_rows for p in plans]), damping)
+    before = merge_kernel.launch_count()
+    basket, _ = merge_sweep(None, buckets[0] + buckets[1], damping_t, L, algo,
                             out_basket=basket, hub_sub=hub_sub)
+    return basket, merge_kernel.launch_count() - before, (buckets, damping_t, algo, hub_sub)
+
+
+def _eager(graph, K, L, iterations, tolerance, device, algo=None):
+    """The sparse loop of ``_sparse_run`` written out eagerly: returns the
+    ``[N, K]`` baskets, the half-sweeps run, each half-sweep's max diff and
+    each one's rise of the kernel's launch counters."""
+    basket, _, (buckets, damping, algo, hub_sub) = _init(graph, L, device, algo)
     slots, diffs, launches = [tolerance, tolerance], [], []
     while len(diffs) < iterations and max(slots) >= tolerance:
         before = merge_kernel.launch_count()
@@ -120,6 +131,16 @@ def small():
     return powerlaw_graph(150, 1000, seed=3)
 
 
+def _wide_graph():
+    """A small graph whose node 0 has 300 more successors: its init row is
+    over 256 wide, so the kernel pipeline merges it with the merge kernel."""
+    g = powerlaw_graph(400, 3000, seed=3)
+    src = np.concatenate([np.repeat(np.arange(g.num_nodes), g.out_degree),
+                          np.zeros(300, dtype=np.int64)])
+    dst = np.concatenate([g.indices, np.arange(1, 301)])
+    return pt.Graph.from_edges(src, dst, num_nodes=g.num_nodes)
+
+
 @pytest.mark.parametrize("iterations,tolerance", CASES)
 def test_the_eager_loop_is_the_programs_on_the_cpu(small, iterations, tolerance):
     tol = _tolerance(small, 5, 10, tolerance, "cpu")
@@ -135,6 +156,29 @@ def test_cpu_half_sweeps_replay_no_graph(small, algo):
     sweeps = _by_name(spans, "grank.half_sweep")
     assert len(sweeps) == ran > 0
     assert all(s.counts["graph_replays"] == 0 for s in sweeps)
+    assert _by_name(spans, "grank.graph_capture") == []
+
+
+@pytest.mark.parametrize("algo", ["sort", "kernel"])
+@pytest.mark.parametrize("name", ["small", "wide"])
+def test_the_cpu_init_sweep_is_the_eager_one_and_replays_no_graph(
+        small, name, algo, monkeypatch):
+    graph = small if name == "small" else _wide_graph()
+    want = _init(graph, 10, "cpu", algo)[0]
+    inits = []
+    real = grank_mod.merge_sweep
+
+    def merge_sweep(basket, *args, **kw):
+        out = real(basket, *args, **kw)
+        if basket is None:
+            inits.append(pt.Baskets(out[0].ids.clone(), out[0].scores.clone()))
+        return out
+
+    monkeypatch.setattr(grank_mod, "merge_sweep", merge_sweep)
+    _, _, spans = _program(graph, 5, 10, 2, 1e-4, "cpu", algo)
+    (init,) = _by_name(spans, "grank.init_sweep")
+    assert init.counts == {"graph_replays": 0}
+    assert len(inits) == 1 and _same_bits(inits[0], want)
     assert _by_name(spans, "grank.graph_capture") == []
 
 
@@ -161,9 +205,41 @@ def test_graph_replays_are_the_eager_loop_bitwise_on_the_card(eat, iterations, t
     sweeps = _by_name(spans, "grank.half_sweep")
     assert [s.counts["graph_replays"] for s in sweeps] == [1] * ran
     assert [s.counts["merge_launches"] for s in sweeps] == launches
-    # one capture a partition, inside that partition's first half-sweep
+    (init,) = _by_name(spans, "grank.init_sweep")
+    assert init.counts == {"graph_replays": 1}
+    # one capture in the init sweep, one a partition in its first half-sweep
     captures = _by_name(spans, "grank.graph_capture")
-    assert [c.parent for c in captures] == [s.id for s in sweeps[:2]]
+    assert [c.parent for c in captures] == [init.id] + [s.id for s in sweeps[:2]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,L", [("eat", 100), ("eat", 500), ("wide", 100)])
+def test_the_replayed_init_sweep_is_the_eager_one_bitwise_on_the_card(name, L):
+    """After one half-sweep ``bufs[0]`` still holds the init sweep's basket
+    (partition 0's graph only reads it).  At the call that captures and at
+    a call on the kept state with another damping, it is bitwise the eager
+    init sweep, and the kernel's launch counters rise by the eager init's
+    launches beside the half-sweep's: on the wide graph init rows take the
+    merge kernel."""
+    _card()
+    graph = pt.load_eat_graph() if name == "eat" else _wide_graph()
+    for reused, damping in enumerate((DAMPING, 0.6)):
+        want, init_launches, _ = _init(graph, L, "cuda", damping=damping)
+        before = merge_kernel.launch_count()
+        profiling.clear()
+        with profiling.record():
+            pt.grank_baskets(graph, 5, L, 1, damping, 1e-4, engine="sparse",
+                             device="cuda")
+        spans = profiling.recorded()
+        (job,), (init,), (sweep,) = (_by_name(spans, n) for n in (
+            "grank.job", "grank.init_sweep", "grank.half_sweep"))
+        assert job.counts["sweep_graphs_reused"] == reused
+        assert init.counts == {"graph_replays": 1}
+        assert _same_bits(graph._sweep_graphs.bufs[0], want)
+        assert (merge_kernel.launch_count() - before
+                == init_launches + sweep.counts["merge_launches"])
+        assert (init_launches > 0) == (name == "wide")
+    graph.release_device_state()
 
 
 @pytest.mark.gpu
@@ -373,10 +449,11 @@ def test_release_device_state_frees_the_state_and_the_next_call_captures():
     _card()
     graph = pt.load_eat_graph()
     want = _call(graph)[0]
-    assert graph._sweep_graphs is not None
+    kept = graph._sweep_graphs
+    assert set(kept.graphs) == {"init", 0, 1}
     reserved = torch.cuda.memory_reserved()
     graph.release_device_state()
-    assert graph._sweep_graphs is None
+    assert graph._sweep_graphs is None and kept.graphs is None
     assert torch.cuda.memory_reserved() < reserved  # the pool went back to the card
     got = [_call(graph) for _ in range(2)]
     assert [reused for _, _, reused in got] == [0, 1]
@@ -385,17 +462,20 @@ def test_release_device_state_frees_the_state_and_the_next_call_captures():
 
 
 @pytest.mark.gpu
-def test_a_capture_that_raises_leaves_no_state(monkeypatch):
+@pytest.mark.parametrize("body", ["init_merge", "sweep"])
+def test_a_capture_that_raises_leaves_no_state(body, monkeypatch):
+    """A capture of the init sweep (the first) or of a half-sweep (after
+    the init sweep's graph was kept) that raises keeps nothing."""
     _card()
     graph = pt.load_eat_graph()
     want = _call(graph)[0]
     graph.release_device_state()
 
-    def sweep(self, src, p, dst):
+    def fail(self, *args):
         raise RuntimeError("made to fail inside the capture")
 
     with monkeypatch.context() as m:
-        m.setattr(grank_mod._SweepGraphs, "sweep", sweep)
+        m.setattr(grank_mod._SweepGraphs, body, fail)
         with pytest.raises(RuntimeError, match="made to fail"):
             _call(graph)
     assert graph._sweep_graphs is None

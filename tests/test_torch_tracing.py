@@ -321,10 +321,11 @@ def test_merge_launches_are_the_kernel_counters_increase_on_the_card(monkeypatch
     _card()
     eat = pt.load_eat_graph()
     pt.grank_baskets(eat, 50, 100, 30, DAMPING, TOL, engine="sparse")  # builds the kernel
+    eat.release_device_state()  # so the next call captures
     deltas, counted = _merge_launches_per_sweep(eat, "cuda", monkeypatch)
-    # the half-sweeps replay CUDA graphs: merge_sweep runs at the init sweep
-    # and at each partition's capture, and each replay counts what its
-    # partition's capture launched
+    # the init sweep and the half-sweeps replay CUDA graphs: merge_sweep runs
+    # at each graph's capture (the init sweep's, then each partition's), and
+    # each replay counts what its partition's capture launched
     assert len(deltas) == 3 and len(counted) == 30 and min(counted) > 0
     assert counted == [deltas[1 + i % 2] for i in range(30)]
 
