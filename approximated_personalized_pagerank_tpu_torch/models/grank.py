@@ -38,6 +38,7 @@ from ..ops.dense import dense_grank_run, use_dense_engine
 from ..ops.loop import run_half_sweeps
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
+    count_routes,
     device_plan,
     merge_sweep,
     plan_widths,
@@ -281,7 +282,19 @@ class _SweepGraphs:
         diff (a 0-d tensor, the graph's output), or None where none is
         computed."""
         self._replay(p, lambda: self._half_sweep(p))
+        count_routes(current(), self.dev_buckets[p], self.L, self.algo, self.hub_sub)
         return self.diffs[p] if self.compute_diff else None
+
+    def kept_bytes(self) -> int:
+        """The bytes this state holds on the card: the upload (plans,
+        dangling rows, damping), the two baskets and the segments of its
+        memory pool (the graphs' temporaries and outputs).  Read from the
+        caching allocator's host-side snapshot: no device work."""
+        pool = tuple(self.pool.id)
+        segments = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                       if tuple(s.get("segment_pool_id", ())) == pool)
+        baskets = sum(t.nbytes for b in self.bufs for t in b)
+        return self.upload_bytes + baskets + segments
 
     def cut(self, i: int, K: int) -> Baskets:
         """The top ``K`` of the newest basket after ``i`` half-sweeps, as
@@ -328,17 +341,21 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
     plans, the damping scalar, the empty baskets and the dangling rows;
     count ``bytes``, what crosses from host to device), ``grank.init_sweep``
     (count ``graph_replays``, 1 where it replayed a graph, 0 where eager),
-    the loop's (ops/loop.py) and on the card, inside the init sweep and
-    each partition's first half-sweep under a new state,
-    ``grank.graph_capture``.  The final cut is the job's own.
+    the loop's (ops/loop.py), each ``grank.half_sweep`` also counting the
+    swept partition's rows by route (``hub_rows``, ``gather_rows``,
+    ``sort_rows``: ops/merge.py::count_routes, from the plan), and on the
+    card, inside the init sweep and each partition's first half-sweep under
+    a new state, ``grank.graph_capture``.  The final cut is the job's own.
 
     On the card the init sweep and the half-sweeps replay CUDA graphs
     (``_SweepGraphs``), bitwise the eager loop's baskets, with its counts.
     That state is kept on ``graph`` for the next call of the same
     :func:`_sweep_key`, whose upload is then the reset of the first basket;
     the job's count ``sweep_graphs_reused`` is 1 where the call found it, 0
-    where it made it.  A call holds ``graph``'s lock throughout.  On the CPU
-    the loop is eager and keeps nothing."""
+    where it made it, and its count ``kept_bytes`` what the state holds on
+    the card after the call (:meth:`_SweepGraphs.kept_bytes`).  A call holds
+    ``graph``'s lock throughout.  On the CPU the loop is eager and keeps
+    nothing."""
     if dev.type != "cuda":
         return _eager_run(graph, K, L, iterations, damping, tolerance, elem_budget,
                           algo, dev)
@@ -367,6 +384,9 @@ def _sparse_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, 
                 kept.release()  # a call that raised, a capture among them, keeps nothing
             raise
         graph._sweep_graphs = kept
+        job = current()
+        if job:
+            job.count("kept_bytes", kept.kept_bytes())
     return out, {"iterations_ran": i}
 
 
@@ -394,6 +414,7 @@ def _eager_run(graph, K, L, iterations, damping, tolerance, elem_budget, algo, d
             basket, dev_buckets[p], damping_t, L, algo, compute_diff=compute_diff,
             elem_budget=elem_budget, hub_sub=hub_sub,
         )
+        count_routes(current(), dev_buckets[p], L, algo, hub_sub)
         return d if compute_diff else None
 
     i = run_half_sweeps(step, iterations, tolerance)

@@ -38,8 +38,8 @@ from ..ops.basket import empty_baskets, keep_top_chunked
 from ..ops.dense import MC_DENSE_MAX_NODES, dense_mc_combine, use_dense_engine
 from ..ops.merge import (
     DEFAULT_ELEM_BUDGET,
+    count_routes,
     device_plan,
-    merge_route,
     merge_sweep,
     plan_widths,
     resolve_merge_algo,
@@ -159,7 +159,7 @@ def _sparse_mc_combine(graph, walk, K, L, damping, combine_passes, elem_budget, 
     node (``mode="mc_combine"``), then the cut to K.  With recording on each
     pass is the span ``mc.combine_pass`` (counts ``buckets``, the rows each
     route merges, ``hub_rows`` / ``gather_rows`` / ``sort_rows``
-    (ops/merge.py::merge_route; together the nodes with successors), and
+    (ops/merge.py::count_routes; together the nodes with successors), and
     ``merge_launches``, the merge kernel's launches) and the cut
     ``mc.final_cut``."""
     plan_L, net, hub_sub = plan_widths(L, algo)
@@ -173,12 +173,7 @@ def _sparse_mc_combine(graph, walk, K, L, damping, combine_passes, elem_budget, 
             if s:
                 launches = launch_count()
                 s.count("buckets", len(buckets))
-                for route in ("hub", "gather", "sort"):
-                    s.count(f"{route}_rows", 0)
-                for b in buckets:
-                    d = b.succ.shape[1]
-                    s.count(f"{merge_route(d, walk.width, algo, hub_sub)}_rows",
-                            b.rows.shape[0])
+                count_routes(s, buckets, walk.width, algo, hub_sub)
             walk, _ = merge_sweep(
                 walk, buckets, damping_t, L, algo, mode="mc_combine",
                 elem_budget=elem_budget, hub_sub=hub_sub,

@@ -296,6 +296,20 @@ def merge_route(d: int, width: int, algo: str, hub_sub: int | None) -> str:
     return "gather" if _takes_kernel(algo, 1 + d * width) else "sort"
 
 
+def count_routes(s, buckets, width: int, algo: str, hub_sub: int | None) -> None:
+    """Add to span handle ``s`` (utils/profiling.py) the rows of ``buckets``
+    that each route of :func:`merge_route` merges when they read baskets
+    ``width`` wide: the counts ``hub_rows``, ``gather_rows`` and
+    ``sort_rows``, together the buckets' rows.  Read from the buckets'
+    shapes on the host; nothing where ``s`` records nothing."""
+    if not s:
+        return
+    for route in ("hub", "gather", "sort"):
+        s.count(f"{route}_rows", 0)
+    for b in buckets:
+        s.count(f"{merge_route(b.succ.shape[1], width, algo, hub_sub)}_rows", b.rows.shape[0])
+
+
 def merge_bucket(
     basket: Baskets | None,
     rows: torch.Tensor,

@@ -23,9 +23,12 @@ The program's spans (PERF.md section 3 names the metric each one feeds):
 engine, the main loop's (ops/loop.py) ``grank.half_sweep`` (counts
 ``merge_launches`` and ``graph_replays``) with its child ``grank.diff_wait``;
 on the sparse engine without a mesh also ``grank.upload`` (count
-``bytes``, host to device), ``grank.init_sweep`` (count ``graph_replays``)
-and, on the card at the init sweep's or a partition's first turn,
-``grank.graph_capture`` inside that sweep;
+``bytes``, host to device), ``grank.init_sweep`` (count ``graph_replays``),
+the half-sweep's rows by merge route (``hub_rows``, ``gather_rows``,
+``sort_rows``), on the card the job's ``sweep_graphs_reused`` and
+``kept_bytes`` (what the kept CUDA graphs' state holds after the call) and,
+at the init sweep's or a partition's first turn, ``grank.graph_capture``
+inside that sweep;
 ``mc.job`` (every engine) and in it, on every engine, ``mc.walks``
 (counts ``chunks``, ``walk_kernel_chunks`` and ``macro_steps``: the
 walks' source chunks, those the walk cohort kernel walked, and the macro

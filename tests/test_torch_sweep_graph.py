@@ -462,6 +462,27 @@ def test_release_device_state_frees_the_state_and_the_next_call_captures():
 
 
 @pytest.mark.gpu
+def test_each_call_counts_the_bytes_its_kept_state_holds_on_the_card():
+    """A call on the card counts on its ``grank.job`` the bytes the kept
+    state holds after it, ``kept_bytes``: at least the two static
+    ``[N, L]`` baskets and the upload (plans, dangling rows, damping), at
+    most what the caching allocator reserves; a call on the kept state
+    counts what the capturing call counted."""
+    _card()
+    graph = pt.load_eat_graph()
+    counted = []
+    for reused in (0, 1):
+        assert _call(graph)[2] == reused
+        (job,) = _by_name(profiling.recorded(), "grank.job")
+        counted.append(job.counts["kept_bytes"])
+    baskets = 2 * graph.num_nodes * 100 * (4 + 4)  # int32 ids, float32 scores
+    low = baskets + graph._sweep_graphs.upload_bytes
+    assert low <= counted[0] <= torch.cuda.memory_reserved()
+    assert counted[1] == counted[0]
+    graph.release_device_state()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("body", ["init_merge", "sweep"])
 def test_a_capture_that_raises_leaves_no_state(body, monkeypatch):
     """A capture of the init sweep (the first) or of a half-sweep (after

@@ -15,6 +15,7 @@ a card's machine without the suite's ``conftest.py``::
 import glob
 import json
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -105,8 +106,13 @@ def test_spans_of_sparse_calls_nest_by_job(graph):
         waits = _by_name(mine, "grank.diff_wait")
         assert sorted(w.parent for w in waits) == sorted(s.id for s in sweeps)
         # on the CPU the kernel's wrappers run their plain versions (no
-        # launch) and the loop is eager (no graph captured or replayed)
-        assert all(s.counts == {"merge_launches": 0, "graph_replays": 0} for s in sweeps)
+        # launch) and the loop is eager (no graph captured or replayed); the
+        # sparse engine counts each half-sweep's rows by merge route
+        routes = {"hub_rows", "gather_rows", "sort_rows"}
+        assert all(set(s.counts) == routes | {"merge_launches", "graph_replays"}
+                   and s.counts["merge_launches"] == s.counts["graph_replays"] == 0
+                   for s in sweeps)
+        assert "kept_bytes" not in job.counts
         assert _by_name(mine, "grank.graph_capture") == []
 
 
@@ -231,6 +237,56 @@ def test_sparse_mc_combine_passes_count_their_rows(algo):
     assert passes[0].counts == passes[1].counts
     routes = [passes[0].counts[k] for k in ("hub_rows", "gather_rows", "sort_rows")]
     assert (all(routes) if algo == "kernel" else routes[:2] == [0, 0])
+
+
+def _routed_graph():
+    """300 nodes: 30 dangling (0-29), 4 hubs of 90-150 successors (30-33),
+    60 rows of one or two successors (34-93), the rest 3-40; every tenth
+    edge doubled, so parallel edges count twice in a degree."""
+    rng = np.random.default_rng(7)
+    n = 300
+    deg = np.concatenate([np.zeros(30, int), rng.integers(90, 151, 4),
+                          rng.integers(1, 3, 60), rng.integers(3, 41, n - 94)])
+    src = np.repeat(np.arange(n), deg)
+    dst = rng.integers(0, n, src.size)
+    src, dst = np.concatenate([src, src[::10]]), np.concatenate([dst, dst[::10]])
+    return pt.Graph.from_edges(src, dst, num_nodes=n), src
+
+
+@pytest.mark.parametrize("algo", ["kernel", "sort"])
+@pytest.mark.parametrize("job", ["grank", "mc"])
+def test_each_merge_sweep_counts_its_rows_by_route(job, algo):
+    """Each GRank ``grank.half_sweep`` (the swept partition) and each MC
+    ``mc.combine_pass`` (every node) counts its rows by merge route, as
+    out-degrees taken from the edge arrays say.  At L=100 under the kernel
+    pipeline a row of more than 81 successors is a hub row (81 * 100 + 1
+    fills the kernel's 8,192), one of 1-2 successors takes the sort pipeline
+    (its bucket's rows, 101 or 201 wide, are under the kernel's 256), the
+    rest the gather entry; the sort pipeline merges every row by sort.
+    Dangling rows are in no bucket."""
+    graph, src = _routed_graph()
+    deg = np.bincount(src, minlength=graph.num_nodes)
+    with profiling.record():
+        if job == "grank":
+            pt.grank_baskets(graph, K, 100, 2, DAMPING, -1.0, engine="sparse",
+                             merge_algo=algo, device="cpu")
+        else:
+            pt.mccompletepathv2_baskets(graph, K, 100, 4, DAMPING, seed=1,
+                                        engine="sparse", merge_algo=algo, device="cpu")
+    name = "grank.half_sweep" if job == "grank" else "mc.combine_pass"
+    sweeps = _by_name(profiling.recorded(), name)
+    assert len(sweeps) == 2
+    for i, s in enumerate(sweeps):
+        rows = deg > 0
+        if job == "grank":
+            rows &= graph.partition == i
+        d = deg[rows]
+        if algo == "kernel":
+            want = [(d > 81).sum(), ((d > 2) & (d <= 81)).sum(), (d <= 2).sum()]
+        else:
+            want = [0, 0, rows.sum()]
+        assert [s.counts[f"{r}_rows"] for r in ("hub", "gather", "sort")] == want
+        assert min(want) > 0 or algo == "sort"
 
 
 def test_spans_and_profiler_events_share_a_clock(graph):
